@@ -1,5 +1,6 @@
 """Grid-query inference CLI of the port (reference inference_grid.py);
-reads a checkpoint written by the JAX trainer."""
+serves the newest checkpoint: the port trainer's state_<step>.pt, else the
+JAX trainer's state_<step>.msgpack."""
 
 import argparse
 import logging

@@ -39,13 +39,31 @@ class DeltaDINO(nn.Module):
 
     ``compute_dtype`` is the conv operand dtype; BN statistics and the
     residual stay f32. In train mode BN uses batch statistics and updates
-    its running buffers in place (torch's own BatchNorm2d convention)."""
+    its running buffers in place (torch's own BatchNorm2d convention), so a
+    training step runs the forward once."""
 
     def __init__(self, channels: Tuple[int, ...] = CHANNELS):
         super().__init__()
         self.layers = nn.ModuleList(
             Layer(channels[i], channels[i + 1])
             for i in range(len(channels) - 1))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Training init (JAX ``init_delta_dino``, delta_dino.py:37-53):
+        torch-default convs drawn from ``generator``, the last conv zeroed
+        and the last BN's γ=0.05, so training starts from the identity
+        refiner; BN running statistics 0 / 1."""
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            pnn.init_conv_(layer.conv, generator)
+            if i == last:
+                layer.conv.weight.zero_()
+                layer.conv.bias.zero_()
+            layer.bn.weight.fill_(0.05 if i == last else 1.0)
+            layer.bn.bias.zero_()
+            layer.bn.running_mean.zero_()
+            layer.bn.running_var.fill_(1.0)
 
     def forward(self, frames_nchw: torch.Tensor, vit_hw: Tuple[int, int],
                 vit_stride: int = 7, vit_patch_size: int = 14,
@@ -56,8 +74,14 @@ class DeltaDINO(nn.Module):
         for i, layer in enumerate(self.layers):
             dilation = DILATIONS[i]
             padding = (KERNEL_SIZE + (KERNEL_SIZE - 1) * (dilation - 1)) // 2
-            x = pnn.conv2d(x.to(compute_dtype), layer.conv.weight,
-                           layer.conv.bias, dilation=dilation, padding=padding,
+            # Every conv feeds a train-mode BN, whose batch-mean subtraction
+            # cancels the conv bias exactly: its gradient is zero in exact
+            # math, and left attached, Adam would turn the float noise on it
+            # into steps of about lr. So the bias is detached in training, as
+            # the JAX package's bias_stopgrad (delta_dino.py:147-161).
+            bias = layer.conv.bias.detach() if self.training else layer.conv.bias
+            x = pnn.conv2d(x.to(compute_dtype), layer.conv.weight, bias,
+                           dilation=dilation, padding=padding,
                            padding_mode="reflect")
             x, (mean, var) = pnn.batchnorm(x, layer.bn, train=self.training)
             if self.training:

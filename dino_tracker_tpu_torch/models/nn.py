@@ -8,13 +8,15 @@ strides, which cuDNN runs without a layout change, and hands back NHWC.
 Parameters live in two small modules, ``Conv`` (OIHW weight, bias) and
 ``BatchNorm`` (affine weight/bias, running mean/var buffers), so a state_dict
 reads like torch's own Conv2d/BatchNorm2d. They are created as an identity
-(zero conv, unit-variance BN): real weights come from a checkpoint through
-``convert.state_from_jax``.
+(zero conv, unit-variance BN); ``init_conv_`` draws torch's default conv
+init from a generator for training, and trained weights come from a
+checkpoint.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,20 @@ class Conv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
         self.bias = nn.Parameter(torch.zeros(out_ch))
+
+
+@torch.no_grad()
+def init_conv_(conv: Conv, generator: torch.Generator):
+    """torch nn.Conv2d's default init, as the JAX ``kaiming_uniform_conv``
+    (``dino_tracker_tpu/models/nn.py:96``): kaiming-uniform(a=√5) weight and
+    a uniform bias, both bounded by 1/√fan_in. Drawn on the generator's
+    device, weight first."""
+    fan_in = conv.weight[0].numel()
+    bound = math.sqrt(2.0 / (1.0 + 5.0)) * math.sqrt(3.0 / fan_in)
+    bbound = 1.0 / math.sqrt(fan_in)
+    for p, b in ((conv.weight, bound), (conv.bias, bbound)):
+        u = torch.rand(p.shape, generator=generator, device=generator.device)
+        p.copy_(u * (2 * b) - b)
 
 
 class BatchNorm(nn.Module):
@@ -56,6 +72,34 @@ def _exact_f32_convs(x: torch.Tensor):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _Conv2d(torch.autograd.Function):
+    """Stride-1 conv whose backward holds the same TF32 rule as its forward.
+
+    Trap (TF32 in backward convs): a context manager around ``F.conv2d``
+    covers the forward only; autograd runs the conv's dgrad and wgrad later,
+    after the flag is restored, so an f32 training step on CUDA ran its
+    backward convs in TF32. Here the backward calls the convolution backward
+    itself, under ``_exact_f32_convs``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dilation, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (dilation, padding, bias.shape)
+        with _exact_f32_convs(x):
+            return F.conv2d(x, weight, bias, dilation=dilation, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dilation, padding, bias_shape = ctx.conf
+        mask = list(ctx.needs_input_grad[:3])
+        with _exact_f32_convs(x):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, weight, list(bias_shape), [1, 1], [padding] * 2,
+                [dilation] * 2, False, [0, 0], 1, mask)
+        return gx, gw, gb, None, None
+
+
 def conv2d(x_nhwc: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            dilation: int = 1, padding: int = 0,
            padding_mode: str = "zeros") -> torch.Tensor:
@@ -69,9 +113,8 @@ def conv2d(x_nhwc: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     elif padding_mode not in ("zeros", "reflect"):
         raise ValueError(f"padding_mode {padding_mode!r}")
     x = x.contiguous(memory_format=torch.channels_last)
-    with _exact_f32_convs(x):
-        y = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype),
-                     dilation=dilation, padding=padding)
+    y = _Conv2d.apply(x, weight.to(x.dtype), bias.to(x.dtype), dilation,
+                      padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -1,5 +1,5 @@
 """Tracker core: refined embeddings -> correlation maps -> coordinates
-(port of dino_tracker_tpu/models/tracker.py, inference functions).
+(port of dino_tracker_tpu/models/tracker.py).
 
 Frame embeddings are channels-last (N×h'×w'×C) everywhere here: sampling
 gathers C-wide rows and the correlations contract C as the minor axis of both
@@ -37,6 +37,12 @@ class Tracker(nn.Module):
         self.delta_dino = DeltaDINO(cfg.delta_channels)
         self.tracker_head = TrackerHead()
 
+    def reset_parameters(self, generator: torch.Generator):
+        """Training init from ``generator`` (JAX ``init_tracker``): DeltaDINO
+        first, then the head."""
+        self.delta_dino.reset_parameters(generator)
+        self.tracker_head.reset_parameters(generator)
+
     def head(self, corr_maps_b1hw: torch.Tensor, cfg: TrackerConfig):
         return self.tracker_head(corr_maps_b1hw, (cfg.video_h, cfg.video_w),
                                  cfg.dino_patch_size, cfg.stride,
@@ -49,19 +55,19 @@ def _gather_frames(x_tchw: torch.Tensor, frames_set_t: torch.Tensor):
 
 def get_refined_embeddings(model: Tracker, video_tchw: torch.Tensor,
                            dino_embed_tchw: torch.Tensor,
-                           frames_set_t: torch.Tensor,
-                           cfg: TrackerConfig) -> torch.Tensor:
-    """Refined = raw DINO + DeltaDINO residual for the frame set, returned
-    channels-last N×h'×w'×C f32. The feature stack enters in its artifact
-    layout (T×C×h'×w', f16 or f32); the gathered frames upcast here (f16→f32
-    is exact)."""
+                           frames_set_t: torch.Tensor, cfg: TrackerConfig):
+    """(refined, raw) for the frame set: refined = raw DINO + DeltaDINO
+    residual, both channels-last N×h'×w'×C f32. The feature stack enters in
+    its artifact layout (T×C×h'×w', f16 or f32); the gathered frames upcast
+    here (f16→f32 is exact). In train mode (``model.train()``) BN uses batch
+    statistics and updates its running buffers once."""
     raw = _gather_frames(dino_embed_tchw, frames_set_t).float().permute(0, 2, 3, 1)
     frames = _gather_frames(video_tchw, frames_set_t)
     residual = model.delta_dino(
         frames, cfg.feat_hw, vit_stride=cfg.stride,
         vit_patch_size=cfg.dino_patch_size,
         compute_dtype=cfg.torch_compute_dtype, channels_last=True)
-    return raw + residual
+    return raw + residual, raw
 
 
 @torch.no_grad()
@@ -81,7 +87,7 @@ def cache_refined_embeddings(model: Tracker, video_tchw: torch.Tensor,
         idx = torch.arange(start, min(start + frames_chunk, t),
                            device=video_tchw.device)
         out[start:start + len(idx)] = get_refined_embeddings(
-            model, video_tchw, dino_embed_tchw, idx, cfg)
+            model, video_tchw, dino_embed_tchw, idx, cfg)[0]
     return out
 
 
@@ -103,6 +109,11 @@ class FrameView(NamedTuple):
 
 def make_frame_view(frame_embeddings_nhwc: torch.Tensor,
                     compute_dtype: torch.dtype = torch.float32) -> FrameView:
+    """Trap (bf16 correlation cotangents): in training the gradient reaches
+    the stack through the compute-dtype round trip, whose backward rounds
+    the slab's cotangent to bf16 as well; JAX rounds the cotangent of its
+    bf16-operand einsums at a different point. bf16 gradients therefore
+    agree with JAX only to a stated, looser bound (tests)."""
     n, h, w, c = frame_embeddings_nhwc.shape
     flat = frame_embeddings_nhwc.reshape(n, h * w, c)
     return FrameView(flat.to(compute_dtype).float(),
@@ -120,11 +131,13 @@ def _correlate_all(src_bc: torch.Tensor, view: FrameView,
 def get_corr_maps(source_embeddings_bc: torch.Tensor,
                   frame_embeddings_nhwc: torch.Tensor,
                   target_frame_indices_b: torch.Tensor,
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32,
+                  view: Optional[FrameView] = None) -> torch.Tensor:
     """Cosine correlation of each source embedding against its target frame
     -> B×1×h×w."""
     _, h, w, _ = frame_embeddings_nhwc.shape
-    view = make_frame_view(frame_embeddings_nhwc, compute_dtype)
+    if view is None:
+        view = make_frame_view(frame_embeddings_nhwc, compute_dtype)
     b = source_embeddings_bc.shape[0]
     tgt = target_frame_indices_b.long()
     corr_all = _correlate_all(source_embeddings_bc, view, compute_dtype)
@@ -147,14 +160,46 @@ def get_point_predictions(model: Tracker, source_points_b3: torch.Tensor,
                           source_frame_idx_b: torch.Tensor,
                           target_frame_idx_b: torch.Tensor,
                           frame_embeddings_nhwc: torch.Tensor,
-                          cfg: TrackerConfig) -> torch.Tensor:
+                          cfg: TrackerConfig,
+                          view: Optional[FrameView] = None) -> torch.Tensor:
     """Flat path, one (source, target) pair per row: pixel (x, y, ·) source
-    points -> B×2 target coords in (-1, 1). Kept as the multi-target oracle."""
+    points -> B×2 target coords in (-1, 1). The train step's optical-flow
+    term (targets vary per point) and the multi-target oracle; ``view`` is
+    the step's shared FrameView of ``frame_embeddings_nhwc``."""
     pts = _source_points(source_points_b3, source_frame_idx_b, cfg)
     src = sample_embeddings(frame_embeddings_nhwc, pts)
     maps = get_corr_maps(src, frame_embeddings_nhwc, target_frame_idx_b,
-                         cfg.torch_compute_dtype)
+                         cfg.torch_compute_dtype, view)
     return model.head(torch.relu(maps), cfg)
+
+
+def get_point_predictions_grouped(model: Tracker, points_gp3: torch.Tensor,
+                                  source_frame_idx_g: torch.Tensor,
+                                  target_frame_idx_g: torch.Tensor,
+                                  frame_embeddings_nhwc: torch.Tensor,
+                                  cfg: TrackerConfig,
+                                  view: Optional[FrameView] = None
+                                  ) -> torch.Tensor:
+    """Blocked prediction (JAX tracker.py:233-302, single device): group
+    g's P pixel points all lie on frame ``source_frame_idx_g[g]`` and
+    re-predict onto ``target_frame_idx_g[g]``, so each group correlates
+    against that one frame only (a batched G×P×C by G×C×hw GEMM). Returns
+    G×P×2 coords in (-1, 1)."""
+    g, p, _ = points_gp3.shape
+    _, h, w, c = frame_embeddings_nhwc.shape
+    cd = cfg.torch_compute_dtype
+    if view is None:
+        view = make_frame_view(frame_embeddings_nhwc, cd)
+    src_frames = source_frame_idx_g.repeat_interleave(p)
+    pts = _source_points(points_gp3.reshape(g * p, 3), src_frames, cfg)
+    src = sample_embeddings(frame_embeddings_nhwc, pts).reshape(g, p, c)
+    tgt = target_frame_idx_g.long()
+    corr = src.to(cd).float() @ view.flat_cd[tgt].transpose(1, 2)  # G×P×hw
+    src_norms = torch.linalg.vector_norm(src, dim=2)               # G×P
+    corr = corr / torch.clamp(src_norms[..., None] * view.norms[tgt][:, None, :],
+                              min=EPS)
+    maps = torch.relu(corr).reshape(g * p, 1, h, w)
+    return model.head(maps, cfg).reshape(g, p, 2)
 
 
 def get_point_predictions_multi_target(model: Tracker,

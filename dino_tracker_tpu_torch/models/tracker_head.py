@@ -38,6 +38,12 @@ class TrackerHead(nn.Module):
         self.conv1 = pnn.Conv(in_channels, hidden_channels, kernel_size)
         self.conv2 = pnn.Conv(hidden_channels, out_channels, kernel_size)
 
+    def reset_parameters(self, generator: torch.Generator):
+        """Training init (JAX ``init_tracker_head``, tracker_head.py:27-36):
+        torch-default convs drawn from ``generator``."""
+        pnn.init_conv_(self.conv1, generator)
+        pnn.init_conv_(self.conv2, generator)
+
     def forward(self, cost_volume_b1hw: torch.Tensor, video_hw: Tuple[int, int],
                 patch_size: int = 14, stride: int = 7,
                 argmax_radius: float = 35.0) -> torch.Tensor:

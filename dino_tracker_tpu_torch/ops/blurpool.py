@@ -1,19 +1,21 @@
-"""Blurpool forward (K1): binomial [1,3,3,1]/8 filter, stride 2, reflect pad,
-over NHWC tensors.
+"""Blurpool (K1): binomial [1,3,3,1]/8 filter, stride 2, reflect pad, over
+NHWC tensors, forward (K1-fwd) and backward (K1-bwd).
 
-``blurpool_cuda`` launches the hand-written Hopper kernel in
-``csrc/blurpool.cu``. It replaces the TPU kernel
+``blurpool_cuda`` launches the hand-written Hopper kernels in
+``csrc/blurpool.cu``. K1-fwd replaces the TPU kernel
 ``dino_tracker_tpu/ops/blurpool.py:59 _down_kernel``, which ran the stencil as
-two 1-D passes with a transpose between them. The op is bound by device-memory
-bytes (16 FMAs per output, ~1.25 bytes moved per input byte), so the CUDA form
-is one fused 2-D pass with C-minor coalesced loads and no transposes; see the
-source note in the ``.cu`` file.
+two 1-D passes with a transpose between them. K1-bwd, launched by the
+autograd backward, replaces ``_up_kernel`` (``ops/blurpool.py:67``), the
+transpose stencil. Both are bound by device-memory bytes (16 FMAs per
+output, ~1.25 bytes moved per byte of the larger tensor), so the CUDA forms
+are one fused 2-D pass each with C-minor coalesced accesses and no
+transposes; see the source notes in the ``.cu`` file.
 
 ``blurpool_reference`` is the plain PyTorch version: reflect pad (1, 2) and a
 depthwise conv with the outer-product filter, computed in f32 and cast to the
-input dtype (antialiased_cnns.BlurPool semantics). ``blurpool`` dispatches on
-the tensor's device: CPU tensors take the plain version, CUDA tensors the
-kernel, with no fallback between them.
+input dtype (antialiased_cnns.BlurPool semantics); its autograd is the plain
+backward. ``blurpool`` dispatches on the tensor's device: CPU tensors take
+the plain version, CUDA tensors the kernels, with no fallback between them.
 """
 
 from __future__ import annotations
@@ -49,29 +51,34 @@ def load_library() -> tuple[ctypes.CDLL, float]:
     from . import _build
     path, seconds = _build.build("blurpool")
     lib = ctypes.CDLL(path)
-    lib.blurpool_down_nhwc.restype = ctypes.c_int
-    lib.blurpool_down_nhwc.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.blurpool_down_nhwc, lib.blurpool_up_nhwc):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_void_p]
     _lib = lib
     return lib, seconds
 
 
-def _check(x: torch.Tensor):
-    if x.device.type != "cuda":
-        raise ValueError(f"blurpool_cuda needs a CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"blurpool_cuda takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"blurpool_cuda takes N×H×W×C, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("blurpool_cuda needs a contiguous NHWC tensor")
-    if x.shape[1] < 3 or x.shape[2] < 3:
-        raise ValueError(f"reflect pad 2 needs H, W >= 3, got {tuple(x.shape)}")
+def _check(t: torch.Tensor, what: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA tensor, got {t.device}")
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {t.dtype}")
+    if t.dim() != 4:
+        raise ValueError(f"{what} takes N×H×W×C, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous NHWC tensor")
+
+
+def _check_hw(h: int, w: int):
+    if h < 3 or w < 3:
+        raise ValueError(f"reflect pad 2 needs H, W >= 3, got H={h}, W={w}")
 
 
 def _launch(x: torch.Tensor) -> torch.Tensor:
-    _check(x)
+    _check(x, "blurpool_cuda")
+    _check_hw(x.shape[1], x.shape[2])
     lib, _ = load_library()
     n, h, w, c = x.shape
     y = torch.empty((n, (h + 1) // 2, (w + 1) // 2, c), dtype=x.dtype,
@@ -85,20 +92,46 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Launch K1-bwd: the cotangent of the forward's N×H×W×C input from the
+    contiguous CUDA cotangent ``g`` (N×ceil(H/2)×ceil(W/2)×C) of its output."""
+    _check(g_nhwc, "blurpool_cuda_bwd")
+    _check_hw(h, w)
+    n, ho, wo, c = g_nhwc.shape
+    if (ho, wo) != ((h + 1) // 2, (w + 1) // 2):
+        raise ValueError(f"cotangent {tuple(g_nhwc.shape)} is not the output "
+                         f"shape of an {h}×{w} input")
+    lib, _ = load_library()
+    gx = torch.empty((n, h, w, c), dtype=g_nhwc.dtype, device=g_nhwc.device)
+    stream = torch.cuda.current_stream(g_nhwc.device).cuda_stream
+    err = lib.blurpool_up_nhwc(g_nhwc.data_ptr(), gx.data_ptr(), n, h, w, c,
+                               _DTYPE_CODE[g_nhwc.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"blurpool_up_nhwc launch failed: CUDA error {err}")
+    blurpool_cuda_bwd.launches += 1
+    return gx
+
+
+blurpool_cuda_bwd.launches = 0  # kernel launches since the last reset
+
+
 class _BlurPoolDown(torch.autograd.Function):
+    """K1-fwd with K1-bwd as its VJP. The op is linear, so the backward
+    needs no residuals, only the input's H and W."""
+
     @staticmethod
     def forward(ctx, x):
+        ctx.hw = (x.shape[1], x.shape[2])
         return _launch(x)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "blurpool backward (K1-bwd, the TPU _up_kernel) is not ported yet; "
-            "it arrives with the training slice")
+        return blurpool_cuda_bwd(g.contiguous(), *ctx.hw)
 
 
 def blurpool_cuda(x_nhwc: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on a contiguous CUDA NHWC tensor (f32 or bf16)."""
+    """Launch K1-fwd on a contiguous CUDA NHWC tensor (f32 or bf16); its
+    autograd backward launches K1-bwd."""
     return _BlurPoolDown.apply(x_nhwc)
 
 

@@ -1,15 +1,18 @@
-"""Per-video inference runtime of the port (single device).
+"""Per-video runtime of the port (single device): training and inference.
 
-Port of the inference half of dino_tracker_tpu/runtime.py: binds a video's
-on-disk artifacts (frames, the DINO feature stack, a checkpoint written by
-the JAX package's trainer) to tensors on one device and serves trajectory
-and occlusion queries. The path contract, ``TrainConfig``, frame loading and
-TAP-Vid query points are the JAX package's framework-free modules; they pull
-in PyYAML and Pillow, so they are imported where files are read.
+Port of dino_tracker_tpu/runtime.py: binds a video's on-disk artifacts
+(frames, the DINO feature stack, fg masks, trajectories, best buddies, a
+checkpoint) to tensors on one device, trains the per-video model and serves
+trajectory and occlusion queries. The path contract, ``TrainConfig``, frame
+loading and TAP-Vid query points are the JAX package's framework-free
+modules; they pull in PyYAML and Pillow, so they are imported where files
+are read.
 
-``make_model_inference`` is the in-memory entry point under
-``DINOTrackerRuntime.get_model_inference``: it takes tensors and the model
-and returns a ready ``ModelInference``.
+Checkpoints: the port's trainer writes ``state_<step>.pt``; inference loads
+the newest of those, and otherwise a ``state_<step>.msgpack`` written by the
+JAX trainer. ``make_model_inference`` and ``load_model`` are the in-memory
+entry points under ``DINOTrackerRuntime``: they take tensors, a model or a
+checkpoint folder, and need no config file.
 """
 
 from __future__ import annotations
@@ -26,8 +29,31 @@ from . import convert
 from .config import TrackerConfig, tracker_config_from_train
 from .inference.infer import ModelInference
 from .models import tracker as tracker_lib
+from .structures import load_bb_data
+from .training import checkpoint as ckpt_lib
+from .training import train as train_lib
+from .training.sampler import BankRotator, build_bank
 
 logger = logging.getLogger(__name__)
+
+
+def load_model(ckpt_folder: str, tcfg: TrackerConfig, device: torch.device,
+               step: Optional[int] = None) -> tracker_lib.Tracker:
+    """The trained model of a checkpoint, on ``device``: the port's newest
+    ``state_<step>.pt`` (or that of ``step``), else the JAX trainer's
+    ``state_<step>.msgpack``."""
+    model = tracker_lib.Tracker(tcfg)
+    port_steps = ckpt_lib.checkpoint_steps(ckpt_folder)
+    if port_steps and (step is None or step in port_steps):
+        state = ckpt_lib.load_state(ckpt_folder, port_steps[0] if step is None
+                                    else step, map_location="cpu")
+        model.load_state_dict(state["model"])
+    else:
+        state = convert.load_jax_checkpoint(
+            convert.checkpoint_path(ckpt_folder, step))
+        model.load_state_dict(convert.state_from_jax(state["params"],
+                                                     state["batch_stats"]))
+    return model.to(device)
 
 
 def make_model_inference(model: tracker_lib.Tracker, video_tchw: torch.Tensor,
@@ -59,21 +85,69 @@ class DINOTrackerRuntime:
     data_path: str
     cfg: object  # dino_tracker_tpu.config.TrainConfig
     device: torch.device = torch.device("cuda")
+    seed: int = 2
 
     def __post_init__(self):
         from dino_tracker_tpu.config import add_config_paths
         self.paths = add_config_paths(self.data_path)
         self.tcfg = tracker_config_from_train(self.cfg)
 
+    def load_video_data(self) -> train_lib.VideoData:
+        """Every training artifact of the video, on this runtime's device
+        (JAX runtime.py:61-106). The feature stack stays f16 (the artifact
+        dtype); the step upcasts the gathered frames, which is exact."""
+        from dino_tracker_tpu.utils import video_io
+        dev = self.device
+        dino = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
+        want = self.tcfg.delta_channels[-1]
+        if dino.shape[1] != want:
+            raise ValueError(
+                f"feature artifact has {dino.shape[1]} channels but the "
+                f"refiner emits {want} (dino_model_name="
+                f"{self.cfg.dino_model_name}): the video was preprocessed "
+                "with a different DINO variant than this config trains")
+        # preprocessing may have capped the video at max_frames; every
+        # artifact takes the feature video's length
+        t_feat = dino.shape[0]
+        video = video_io.load_video(
+            self.paths["video_folder"],
+            resize=(self.cfg.video_resh, self.cfg.video_resw),
+            num_frames=t_feat)
+        if video.shape[0] != t_feat:
+            raise ValueError(f"video has {video.shape[0]} frames but the "
+                             f"features cover {t_feat}")
+        fg_masks = video_io.load_masks(self.paths["masks_path"],
+                                       h_resize=self.cfg.video_resh,
+                                       w_resize=self.cfg.video_resw)[:t_feat]
+        bb = load_bb_data(os.path.join(self.paths["dino_bb_dir"],
+                                       "dino_best_buddies_filtered.npz"), dev)
+        fg = video_io.load_npz(self.paths["fg_trajectories_file"])["trajectories"]
+        bg = video_io.load_npz(self.paths["bg_trajectories_file"])["trajectories"]
+        self.bank_rotator = None
+        if self.cfg.keep_traj_in_cpu:
+            self.bank_rotator = BankRotator(fg, bg, device=dev)
+            fg_bank, bg_bank = self.bank_rotator.current()
+        else:
+            fg_bank, bg_bank = build_bank(fg, device=dev), build_bank(bg, device=dev)
+        return train_lib.VideoData(
+            video=torch.from_numpy(video).to(dev),
+            dino_embed=torch.from_numpy(dino).to(dev),
+            fg_masks=torch.from_numpy(fg_masks).to(dev), bb=bb,
+            fg_bank=fg_bank, bg_bank=bg_bank)
+
+    def train(self) -> tracker_lib.Tracker:
+        """Train (or resume) this video's model; checkpoints go to
+        ``models/dino_tracker/state_<step>.pt``."""
+        data = self.load_video_data()
+        return train_lib.Trainer(
+            cfg=self.cfg, tcfg=self.tcfg, data=data,
+            ckpt_folder=self.paths["ckpt_folder"], seed=self.seed,
+            bank_rotator=self.bank_rotator, device=self.device).train()
+
     def load_state(self, step: Optional[int] = None) -> tracker_lib.Tracker:
-        """The model of a JAX-written ``state_<step>.msgpack`` (newest when
-        ``step`` is None), on this runtime's device."""
-        path = convert.checkpoint_path(self.paths["ckpt_folder"], step)
-        state = convert.load_jax_checkpoint(path)
-        model = tracker_lib.Tracker(self.tcfg)
-        model.load_state_dict(convert.state_from_jax(state["params"],
-                                                     state["batch_stats"]))
-        return model.to(self.device)
+        """The trained model (see ``load_model``) on this runtime's device."""
+        return load_model(self.paths["ckpt_folder"], self.tcfg, self.device,
+                          step)
 
     def get_model_inference(self, step: Optional[int] = None,
                             chunk: int = 4096) -> ModelInference:

@@ -55,6 +55,19 @@ def normalize_points_for_sampling(points: torch.Tensor, h: int, w: int,
     return points * a + b
 
 
+def vit_feature_coords(h: int, w: int, stride: int = 7, patch_size: int = 14,
+                       device=None) -> torch.Tensor:
+    """Patch-center pixel coords of the feature grid, flattened row-major to
+    N×2 (x, y) (JAX utils/coords.py:88-97; arange end ``size - half + 1``)."""
+    half = patch_size // 2
+    x = torch.arange(half, w - half + 1, stride, dtype=torch.float32,
+                     device=device)
+    y = torch.arange(half, h - half + 1, stride, dtype=torch.float32,
+                     device=device)
+    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
+
+
 def soft_argmax_pixel_grid(video_h: int, video_w: int, patch_size: int = 14,
                            step: int = 7, device=None) -> torch.Tensor:
     """H'×W'×2 (x, y) patch-center pixel grid of the head's soft-argmax

@@ -1,15 +1,19 @@
-"""Trilinear feature sampling (port of dino_tracker_tpu/utils/sampling.py
-``sample_feature_video_thwc``).
+"""Feature and mask sampling (port of dino_tracker_tpu/utils/sampling.py
+``sample_feature_video_thwc`` and the 2-D lookup the losses use).
 
-torch ``grid_sample`` semantics (align_corners=True, border clamp) written as
-row gathers on the (T·H·W)×C view of a channels-last stack: each point reads
-eight C-wide rows. Plain tensor indexing; in the JAX package this was XLA,
-not a Pallas kernel.
+Trilinear sampling: torch ``grid_sample`` semantics (align_corners=True,
+border clamp) written as row gathers on the (T·H·W)×C view of a channels-last
+stack: each point reads eight C-wide rows. With gradients, the backward of
+each row gather is a row scatter-add (``index_add``), which on CUDA
+accumulates with atomics: sums land in run-dependent order, so two GPU runs
+differ from each other and from the CPU in the last bits. Plain tensor
+indexing; in the JAX package this was XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
@@ -51,3 +55,18 @@ def sample_feature_video_thwc(features_thwc: torch.Tensor,
     c0 = c00 * (1 - wy) + c01 * wy
     c1 = c10 * (1 - wy) + c11 * wy
     return c0 * (1 - wz) + c1 * wz
+
+
+def sample_masks_at_points(masks_phw: torch.Tensor, coords_pk2: torch.Tensor,
+                           resw: int, resh: int) -> torch.Tensor:
+    """Bilinear lookup of P masks (P×H×W) at P×K pixel (x, y) coords -> P×K
+    f32, as the reference's ``filter_bb_foreground_pairs`` samples its fg
+    mask: ``grid_sample`` with align_corners=False, zero padding, and a /size
+    (not /size-1) normalisation (JAX training/losses.py:59-67)."""
+    scale = torch.tensor([resw, resh], dtype=coords_pk2.dtype,
+                         device=coords_pk2.device)
+    grid = 2.0 * (coords_pk2 / scale) - 1.0
+    out = F.grid_sample(masks_phw[:, None].float(), grid[:, None].float(),
+                        mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    return out[:, 0, 0]
