@@ -5,13 +5,17 @@
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
-  2. build: compiles kernel K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
-     and K1-bwd blurpool_up_nhwc) with nvcc into build/kernels/.
+  2. build: compiles kernels K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
+     and K1-bwd blurpool_up_nhwc) and K2 (csrc/flash_attention.cu) with
+     nvcc into build/kernels/, one nvcc per source, all started together.
   3. kernel check: K1-fwd against its plain PyTorch version at the three
      DeltaDINO blurpool shapes of a 16-frame refine chunk, and K1-bwd against
      autograd of the plain version at the three shapes of an 8-frame training
-     step, bf16 and f32, with the error bound and kernel vs plain times from
-     CUDA events.
+     step, bf16 and f32; K2 against attention_reference at the ViT stage's
+     shape [4 frames, 16 heads, S=8108, 64] in bf16, at one frame in f32 and
+     at ragged S = 100 and 1000 in both; with the error bounds and kernel vs
+     plain (and, for K2, F.scaled_dot_product_attention) times from CUDA
+     events.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
@@ -28,27 +32,43 @@ Phases, one line or more each (any failure raises and exits non-zero):
      trains 4 iterations across a phase boundary, writing state_<step>.pt,
      and runtime.load_model + make_model_inference serve one 256-point
      request from that checkpoint.
-  6. reference: the inference entry points on a small f32 input, and one f32
+  6. the ViT feature stage at full width: seeded random dinov2_vitl14 weights
+     (D=1024, 24 blocks, 16 heads) in the DINOv2 layout, made on the card,
+     and a synthetic T=50 video at 854×476. PreprocessingPipeline.
+     extract_dino_features sweeps layers 15 and 23 once (stride 7, a 67×121
+     grid, S=8108 tokens, 4 frames a batch, bf16, every attention through
+     K2) and writes the f16 artifacts under build/chip_smoke/vit/; then
+     create_fg_masks on the layer-23 features (mask jpgs written) and
+     split_trajectories on synthetic trajectories (masks read back, fg/bg
+     banks written); then the per-token cosine of bf16 against f32 features
+     on one frame (gate: median >= 0.995).
+  7. reference: the inference entry points on a small f32 input, one f32
      training step (losses and gradients) on a small input from the same
-     init and the same injected batch, each on the GPU and on the CPU (the
-     CPU path is held against the JAX package by the tests).
-Then one JSON line with the kernels, and last {"ok": true, "device": ...}.
+     init and the same injected batch, and a small f32 ViT through
+     extract_feature_video and compute_fg_masks, each on the GPU and on the
+     CPU (the CPU path is held against the JAX package by the tests).
+Each main path (phases 4, 5, 6) runs with every kernel's launch count set
+to 0 just before it and read just after. Then one JSON line with the
+kernels, and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
 Imports no JAX, none of the JAX package's modules, and none of PyYAML,
-Pillow or msgpack.
+imageio or msgpack; Pillow only through the pipeline's mask jpgs.
 """
 
+import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
 import time
-from types import SimpleNamespace
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 T, H, W = 50, 476, 854
 CHANNELS = (3, 64, 128, 256, 1024)
@@ -61,31 +81,39 @@ REAL_SHAPES = [(16, 476, 854, 64), (16, 238, 427, 128), (16, 119, 214, 256)]
 TRAIN_SHAPES = [(8, 476, 854, 64), (8, 238, 427, 128), (8, 119, 214, 256)]
 # TrainConfig defaults for the occlusion rule
 ANCHOR_COS, COS = 0.7, 0.6
-# dino_tracker_tpu.config.TrainConfig's defaults (the reference's
-# config/train.yaml) for the fields training reads; that module imports
-# PyYAML, which this script must not need
-TRAIN_CFG = SimpleNamespace(
-    checkpoint_interval=2500, video_resw=W, video_resh=H, fg_traj_ratio=0.5,
-    train_batch_size=512, batch_n_frames=4, sampler_batch_iterations=100_000,
-    total_iterations=10_000, lr_delta_dino=0.01, lr_cnn_refiner=0.01,
-    apply_scheduler_every=40, scheduler_gamma=0.999, lambda_cyc=0.5,
-    apply_cyc_after=5000, cyc_n_frames=4, cyc_batch_size_per_frame=256,
-    cyc_fg_points_ratio=0.7, cyc_thresh=4.0, cyc_gamma=0.8,
-    lambda_emb_norm=0.0001, lambda_angle=0.0001, lambda_cl_dino_bb=0.00025,
-    lambda_cl_ref_bb=0.00005, cl_n_frames=4, cl_points_per_pair=256,
-    cl_fg_points_ratio=0.7, cl_temp=0.1, cl_div_dino_bb=700.0,
-    cl_div_ref_bb=900.0, apply_cl_ref_after=5000, bb_amb_sig_a=27.0,
-    bb_amb_sig_b=-5.7, compute_dtype="bfloat16")
 N_FG_TRAJ = N_BG_TRAJ = 100_000
 BB_CAP = 512
 WARMUP_STEPS, OFF_STEPS, ON_STEPS = 3, 20, 10
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
+# K2 on the ViT feature stage's main path: 4 frames a batch × 16 heads,
+# 67·121 tokens + cls, head dim 64, bf16
+ATTN_SHAPE = (4, 16, 8108, 64)
+ATTN_SCALE = 1.0 / math.sqrt(ATTN_SHAPE[-1])
+# K2's bf16 bound, in units of the reference output's largest magnitude
+BF16_ATTN_TOL = 2.0 ** -6
+N_SPLIT_TRAJ = 100_000
+# published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM
+BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound(flops, nbytes, peak_flops):
+    """(least ms for the work, "operations" or "bytes", whichever bounds)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from dino_tracker_tpu_torch.ops import blurpool as bp
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
+    fa.flash_attention_cuda.launches = 0
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -152,6 +180,19 @@ def build_model(params, stats, tcfg, device):
     return model.to(device)
 
 
+def blurpool_bound(shapes, itemsize=2):
+    """Summed bound of one blurpool (either direction) per N×H×W×C input
+    shape: the full-size and the half-size tensor each moved once; 16 f32
+    FMAs per half-size value."""
+    flops = nbytes = 0.0
+    for n, h, w, c in shapes:
+        small = n * ((h + 1) // 2) * ((w + 1) // 2) * c
+        flops += 32.0 * small
+        nbytes += (n * h * w * c + small) * itemsize
+    ms, by = bound(flops, nbytes, F32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+
 def phase_kernel_check(bp, dev):
     g = torch.Generator(device=dev).manual_seed(0)
     worst, ms, plain_ms = 0.0, 0.0, 0.0
@@ -175,7 +216,8 @@ def phase_kernel_check(bp, dev):
                 ms += k
                 plain_ms += p
             del x, y, ref
-    return worst, ms, plain_ms
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **blurpool_bound(REAL_SHAPES)}
 
 
 def phase_kernel_bwd_check(bp, dev):
@@ -206,7 +248,60 @@ def phase_kernel_bwd_check(bp, dev):
                 ms += k
                 plain_ms += p
             del x, y, gy, ref, gx
-    return worst, ms, plain_ms
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **blurpool_bound(TRAIN_SHAPES)}
+
+
+def phase_attention_check(dev):
+    """K2 against attention_reference: at the main path's shape in bf16 (the
+    plain version frame by frame: one frame's f32 scores take 4.2 GB), at
+    one frame in f32, and at ragged S in both dtypes. Bounds: bf16
+    2^-6·max|out|, two to four bf16 ulps at the top of the output's range
+    (the kernel rounds the unnormalised probabilities to bf16, the plain
+    version the normalised ones; both round the output), f32 2e-5. Times at the main
+    path's shape: K2, the plain version and F.scaled_dot_product_attention
+    (timed only: the port never calls it)."""
+    from dino_tracker_tpu_torch.ops import attention as attn
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def plain(q, k, v):
+        return torch.cat([attn.attention_reference(q[i:i + 1], k[i:i + 1],
+                                                   v[i:i + 1], ATTN_SCALE)
+                          for i in range(q.shape[0])])
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(ATTN_SHAPE, bf16), ((1,) + ATTN_SHAPE[1:], f32)] + [
+        ((2, 3, s, 64), dt) for s in (100, 1000) for dt in (bf16, f32)]
+    for shape, dtype in cases:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        out = fa.flash_attention_cuda(q, k, v, ATTN_SCALE)
+        ref = plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = BF16_ATTN_TOL * ref.float().abs().max().item() if dtype == bf16 else 2e-5
+        check(out.shape == ref.shape and out.dtype == dtype and err <= tol,
+              f"K2 {shape} {dtype}: max abs err {err} > bound {tol}")
+        print(f"kernel check: K2 {shape} {str(dtype)[6:]}: max_abs_err "
+              f"{err:.3g} (bound {tol:.3g})", flush=True)
+        if shape == ATTN_SHAPE:
+            main = (q, k, v, err)
+        del out, ref
+    q, k, v, err = main
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, ATTN_SCALE))
+    plain_ms = cuda_ms(lambda: plain(q, k, v), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=ATTN_SCALE))
+    b, h, s, d = ATTN_SHAPE
+    flops = 4.0 * b * h * s * s * d
+    bound_ms, bound_by = bound(flops, 4.0 * b * h * s * d * 2, BF16_FLOPS)
+    print(f"kernel check: K2 {ATTN_SHAPE} bf16: kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms (frame by "
+          f"frame), scaled_dot_product_attention {library_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_slice(bp, dev):
@@ -221,7 +316,7 @@ def phase_slice(bp, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     mi = runtime.make_model_inference(model, video, dino, tcfg, ANCHOR_COS, COS)
     torch.cuda.synchronize()
@@ -298,17 +393,18 @@ def phase_train(bp, dev, video, dino):
     """The training slice at full width; returns the K1 launch counts of its
     main path (the timed train_step loop)."""
     from dino_tracker_tpu_torch import runtime
-    from dino_tracker_tpu_torch.config import TrackerConfig
+    from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from dino_tracker_tpu_torch.training import checkpoint, train
+    cfg = TrainConfig()  # the reference's config/train.yaml defaults
     tcfg = TrackerConfig(video_h=H, video_w=W, delta_channels=CHANNELS,
-                         compute_dtype=TRAIN_CFG.compute_dtype)
+                         compute_dtype=cfg.compute_dtype)
     data = make_train_data(video, dino, dev, 5)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     ckpt_folder = os.path.join(WORK_DIR, "models", "dino_tracker")
-    trainer = train.Trainer(TRAIN_CFG, tcfg, data, ckpt_folder, seed=2, device=dev)
+    trainer = train.Trainer(cfg, tcfg, data, ckpt_folder, seed=2, device=dev)
     model = trainer.init_model().train()
     init = [p.detach().clone() for p in model.parameters()]
-    opt, sched = train.make_optimizer(model, TRAIN_CFG)
+    opt, sched = train.make_optimizer(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -318,11 +414,11 @@ def phase_train(bp, dev, video, dino):
         t0 = time.perf_counter()
         for _ in range(n):
             history.append(train.train_step(model, opt, sched, data, gen, gates,
-                                            gates, TRAIN_CFG, tcfg))
+                                            gates, cfg, tcfg))
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
-    bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
+    reset_counts()
     first_ms = run(1, False)
     run(WARMUP_STEPS - 1, False)
     off_ms = run(OFF_STEPS, False)
@@ -346,7 +442,7 @@ def phase_train(bp, dev, video, dino):
           f"{len(grads)} have gradients")
     fmt = lambda m: ", ".join(f"{k} {float(v):.6g}" for k, v in m.items())
     print(f"train: T={T} {W}x{H} C={CHANNELS[-1]} bf16, batch "
-          f"{TRAIN_CFG.train_batch_size}x{TRAIN_CFG.batch_n_frames} frames, "
+          f"{cfg.train_batch_size}x{cfg.batch_n_frames} frames, "
           f"{N_FG_TRAJ}+{N_BG_TRAJ} trajectories: first step {first_ms:.1f} ms, "
           f"gates off {off_ms:.2f} ms/iter ({OFF_STEPS} steps), gates on "
           f"{on_ms:.2f} ms/iter ({ON_STEPS} steps), peak memory {peak:.2f} GiB, "
@@ -355,11 +451,10 @@ def phase_train(bp, dev, video, dino):
     print(f"train: losses, gates on: {fmt(m_on)}", flush=True)
 
     # the Trainer loop across a phase boundary, then serve its checkpoint
-    cfg = SimpleNamespace(**{**vars(TRAIN_CFG), "total_iterations": 4,
-                             "checkpoint_interval": 2, "apply_cyc_after": 2,
-                             "apply_cl_ref_after": 2})
+    short = dataclasses.replace(cfg, total_iterations=4, checkpoint_interval=2,
+                                apply_cyc_after=2, apply_cl_ref_after=2)
     t0 = time.perf_counter()
-    train.Trainer(cfg, tcfg, data, ckpt_folder, seed=2, device=dev).train(
+    train.Trainer(short, tcfg, data, ckpt_folder, seed=2, device=dev).train(
         log_interval=2)
     steps_saved = checkpoint.checkpoint_steps(ckpt_folder)
     check(steps_saved == [4, 2], f"Trainer wrote checkpoints {steps_saved}")
@@ -385,18 +480,17 @@ def phase_train_reference(dev):
     magnitude: the row gathers' backward accumulates with atomics on the
     card, so sums land in another order than on the CPU (and from run to
     run)."""
-    from dino_tracker_tpu_torch.config import TrackerConfig
+    from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from dino_tracker_tpu_torch.models import nn as pnn
     from dino_tracker_tpu_torch.models.tracker import Tracker
     from dino_tracker_tpu_torch.training import cycle, sampler, train
     t, h, w, channels = 6, 70, 98, (3, 8, 8, 8, 32)
     tcfg = TrackerConfig(video_h=h, video_w=w, delta_channels=channels)
     n_feat = tcfg.feat_hw[0] * tcfg.feat_hw[1]
-    cfg = SimpleNamespace(**{**vars(TRAIN_CFG), "video_resh": h, "video_resw": w,
-                             "train_batch_size": 32, "batch_n_frames": 3,
-                             "cyc_n_frames": 2, "cyc_batch_size_per_frame": 16,
-                             "cl_n_frames": 2, "cl_points_per_pair": 2 * n_feat,
-                             "cl_fg_points_ratio": 0.5, "compute_dtype": "float32"})
+    cfg = TrainConfig(video_resh=h, video_resw=w, train_batch_size=32,
+                      batch_n_frames=3, cyc_n_frames=2, cyc_batch_size_per_frame=16,
+                      cl_n_frames=2, cl_points_per_pair=2 * n_feat,
+                      cl_fg_points_ratio=0.5, compute_dtype="float32")
     cpu = torch.device("cpu")
     video, dino = make_inputs(t, h, w, channels[-1], tcfg.feat_hw, cpu, 4)
     data = make_train_data(video, dino, cpu, 4, bb_cap=24, n_traj=(200, 200))
@@ -475,10 +569,197 @@ def phase_reference(dev):
     check(err <= 1e-2 and same_occ == 1.0, "GPU and CPU paths disagree")
 
 
+def vit_state(cfg, dev, seed):
+    """Random ViT weights under the DINOv2 state-dict keys, made on ``dev``:
+    linears ~U(±1/√din), non-zero pos-embed (so the bicubic resize does
+    work) and layerscale ~U(±0.2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(shape, scale):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * scale
+
+    d, hid, p = cfg.embed_dim, cfg.mlp_ratio * cfg.embed_dim, cfg.patch_size
+    sd = {"patch_embed.proj.weight": u((d, 3, p, p), 1 / math.sqrt(3 * p * p)),
+          "patch_embed.proj.bias": u((d,), 0.1), "cls_token": u((1, 1, d), 1.0),
+          "pos_embed": u((1, 1 + cfg.pretrain_grid ** 2, d), 1.0)}
+    for i in range(cfg.depth):
+        b = f"blocks.{i}."
+        for name, (dout, din) in {"attn.qkv": (3 * d, d), "attn.proj": (d, d),
+                                  "mlp.fc1": (hid, d), "mlp.fc2": (d, hid)}.items():
+            sd[f"{b}{name}.weight"] = u((dout, din), 1 / math.sqrt(din))
+            sd[f"{b}{name}.bias"] = u((dout,), 0.1)
+        for name in ("norm1", "norm2"):
+            sd[f"{b}{name}.weight"] = 1 + u((d,), 0.2)
+            sd[f"{b}{name}.bias"] = u((d,), 0.1)
+        if cfg.layerscale:
+            sd[f"{b}ls1.gamma"] = u((d,), 0.2)
+            sd[f"{b}ls2.gamma"] = u((d,), 0.2)
+    return sd
+
+
+def scene_video(t, h, w, dev, seed):
+    """T×3×H×W in [0, 1]: a smooth static background and a bright disk that
+    crosses it, plus noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ys = torch.linspace(0, 1, h, device=dev)[:, None]
+    xs = torch.linspace(0, 1, w, device=dev)[None, :]
+    bg = torch.stack([0.4 + 0.2 * torch.sin(6 * xs + 2 * ys),
+                      0.4 + 0.2 * torch.cos(5 * ys - 3 * xs),
+                      0.3 + 0.1 * xs + 0.1 * ys])  # 3×H×W
+    cx = 0.25 + 0.5 * torch.arange(t, device=dev)[:, None, None] / max(t - 1, 1)
+    disk = (((xs - cx) * w / h) ** 2 + (ys - 0.5) ** 2) < 0.2 ** 2  # T×H×W
+    fg = torch.tensor([0.9, 0.8, 0.2], device=dev)[None, :, None, None]
+    video = torch.where(disk[:, None], fg, bg[None])
+    noise = torch.randn(video.shape, generator=g, device=dev) * 0.03
+    return (video + noise).clamp(0, 1)
+
+
+def token_cosines(a, b):
+    """Per-token cosine of two T×D×h×w feature videos, flattened."""
+    return F.cosine_similarity(a.flatten(2), b.flatten(2), dim=1).flatten()
+
+
+def phase_vit(dev):
+    """The ViT feature stage at full width through the port's entry points;
+    returns K2's launch count in it."""
+    from dino_tracker_tpu_torch.config import PreprocessConfig, feature_grid_size
+    from dino_tracker_tpu_torch.models import vit, vit_convert
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.preprocessing import fg_mask, split_fg_bg
+    from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
+    from dino_tracker_tpu_torch.utils import video_io
+    cfg = PreprocessConfig()  # dinov2_vitl14, layers 15 and 23, stride 7, bf16
+    vcfg = vit.ViTConfig.for_model(cfg.dino_model_name)
+    model = vit_convert.build_vit(vit_state(vcfg, dev, 6), vcfg, dev)
+    h, w = cfg.video_resh, cfg.video_resw
+    grid = feature_grid_size(h, w, vcfg.patch_size, cfg.dino_stride)
+    video = scene_video(T, h, w, dev, 7)
+    root = os.path.join(WORK_DIR, "vit")
+    shutil.rmtree(root, ignore_errors=True)
+    pipe = PreprocessingPipeline(root, cfg, vit=model, device=dev, frames=video)
+    paths = [pipe.paths["dino_embed_video_path"],
+             pipe.paths["mask_dino_embed_video_path"]]
+    layers = [cfg.dino_layer, cfg.mask_dino_layer]
+    rng = np.random.default_rng(8)
+    trajs = np.stack([rng.uniform(0, w - 1, (N_SPLIT_TRAJ, T)),
+                      rng.uniform(0, h - 1, (N_SPLIT_TRAJ, T))], -1).astype(np.float32)
+    trajs[rng.random((N_SPLIT_TRAJ, T)) < 0.3] = np.nan  # late starts and gaps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    feats, mask_feats = pipe.extract_dino_features(layers, paths)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    masks_np = pipe.create_fg_masks(mask_feats)  # and the mask jpgs
+    t2 = time.perf_counter()
+    fg, bg = pipe.split_trajectories(trajs)  # masks read back, two .npz banks
+    t3 = time.perf_counter()
+    launches = fa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pipe.join_saves()
+    t4 = time.perf_counter()
+    # stages 3-4 again, with the first call's library loads done and the
+    # feature artifacts landed: the computation alone, then each entry point
+    again = fg_mask.compute_fg_masks(mask_feats, (h, w), cfg.fg_mask_threshold)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    masks_again = pipe.create_fg_masks(mask_feats)
+    t6 = time.perf_counter()
+    fg_again, _ = pipe.split_trajectories(trajs)
+    t7 = time.perf_counter()
+    check(np.array_equal(again.cpu().numpy(), masks_np)
+          and np.array_equal(masks_again, masks_np)
+          and np.array_equal(fg_again, fg, equal_nan=True),
+          "stages 3-4 are not deterministic")
+    # the mask jpgs read back are the masks in memory (at the midpoint: the
+    # jpg rings a few levels around an edge, and the split, as in the
+    # reference, takes any value > 0 as fg); the banks written are the split
+    # of what was read back
+    on_disk = video_io.load_masks(pipe.paths["masks_path"], h, w)
+    check(np.array_equal((on_disk > 127).astype(np.float32), masks_np),
+          "the mask jpgs do not read back as the masks")
+    ref_fg, ref_bg = split_fg_bg.split_fg_bg(trajs, on_disk)
+    for name, got, ref in (("fg_trajectories_file", fg, ref_fg),
+                           ("bg_trajectories_file", bg, ref_bg)):
+        check(np.array_equal(got, ref, equal_nan=True) and np.array_equal(
+            video_io.load_npz(pipe.paths[name])["trajectories"], ref, equal_nan=True),
+              f"{name} is not the split of the masks on disk")
+
+    depth = max(layers) + 1  # the sweep stops after the deepest layer
+    expected = depth * -(-T // cfg.extract_frames_per_batch)
+    check(launches == expected, f"K2 launched {launches} times in the ViT "
+          f"stage, expected {expected}")
+    for f in (feats, mask_feats):
+        check(f.shape == (T, vcfg.embed_dim, *grid) and f.dtype == torch.float32
+              and bool(f.isfinite().all()), f"features {f.shape} {f.dtype}")
+    for path, f in zip(paths, (feats, mask_feats)):
+        art = video_io.load_npz(path)["features"]
+        check(art.dtype == np.float16 and art.shape == tuple(f.shape)
+              and np.array_equal(art[[0, -1]], f[[0, -1]].half().cpu().numpy()),
+              f"artifact {path}: {art.dtype} {art.shape}")
+    check(masks_np.shape == (T, h, w) and set(np.unique(masks_np)) <= {0.0, 1.0},
+          "masks are not T×H×W {0, 1}")
+    check(len(fg) + len(bg) == N_SPLIT_TRAJ, "the split lost trajectories")
+    fg_share = float(masks_np.mean())
+    print(f"vit: {cfg.dino_model_name} T={T} {w}x{h} stride {cfg.dino_stride} "
+          f"grid {grid} S={grid[0] * grid[1] + 1} bf16, {cfg.extract_frames_per_batch} "
+          f"frames a batch, layers {layers} in one sweep: features {t1 - t0:.3f} s "
+          f"({T / (t1 - t0):.2f} frames/s), fg masks with their jpgs "
+          f"{t2 - t1:.3f} s, split of {N_SPLIT_TRAJ} trajectories with the "
+          f"masks read back and both banks written {t3 - t2:.3f} s ({len(fg)} "
+          f"fg / {len(bg)} bg), f16 artifacts joined {t4 - t3:.3f} s later; "
+          f"peak memory {peak:.2f} GiB, fg share {fg_share:.4f}, K2 launches "
+          f"{launches}", flush=True)
+    print(f"vit: again, after the artifacts landed: compute_fg_masks "
+          f"{t5 - t4:.3f} s, create_fg_masks {t6 - t5:.3f} s, "
+          f"split_trajectories {t7 - t6:.3f} s", flush=True)
+
+    ref = vit.extract_feature_video(model, video[:1], stride=cfg.dino_stride,
+                                    layer=layers, compute_dtype=torch.float32)
+    cos = torch.cat([token_cosines(f[:1], r) for f, r in zip((feats, mask_feats), ref)])
+    cmin, cmed = cos.min().item(), cos.median().item()
+    print(f"vit: bf16 vs f32 features on frame 0, layers {layers}: per-token "
+          f"cosine min {cmin:.6f}, median {cmed:.6f} (gate: median >= 0.995)",
+          flush=True)
+    check(cmed >= 0.995, f"bf16 features drift from f32: median cosine {cmed}")
+    return launches
+
+
+def phase_vit_reference(dev):
+    """A small f32 ViT (head dim 64, the dim K2 takes) through
+    extract_feature_video and compute_fg_masks, GPU against CPU: features
+    within 1e-4 of their max, masks equal."""
+    from dino_tracker_tpu_torch.models import vit, vit_convert
+    from dino_tracker_tpu_torch.preprocessing import fg_mask
+    cpu = torch.device("cpu")
+    cfg = vit.ViTConfig(embed_dim=128, depth=3, num_heads=2, mlp_ratio=2,
+                        patch_size=14, pretrain_grid=5)
+    state = vit_state(cfg, cpu, 9)
+    t, h, w = 3, 70, 98
+    video = scene_video(t, h, w, cpu, 10)
+    out = []  # (features, masks) on the GPU, then on the CPU
+    for d in (dev, cpu):
+        model = vit_convert.build_vit(state, cfg, d)
+        f = vit.extract_feature_video(model, video.to(d), stride=7, layer=[1, 2])
+        out.append(([x.cpu() for x in f],
+                    fg_mask.compute_fg_masks(f[1], (h, w)).cpu()))
+    (gpu_f, gpu_m), (cpu_f, cpu_m) = out
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(gpu_f, cpu_f))
+    same = bool(torch.equal(gpu_m, cpu_m))
+    print(f"reference: f32 ViT (D=128, 3 blocks, 2 heads) T={t} {w}x{h}: GPU vs "
+          f"CPU features max diff {err:.3g} of their max (bound 1e-4), fg masks "
+          f"equal {same} (fg share {cpu_m.mean().item():.3f})", flush=True)
+    check(err <= 1e-4 and same, "GPU and CPU ViT feature stages disagree")
+
+
 def main():
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
     from dino_tracker_tpu_torch.ops import blurpool as bp
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -489,31 +770,42 @@ def main():
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _, nvcc_s = bp.load_library()
-    print(f"build: K1-fwd and K1-bwd csrc/blurpool.cu nvcc {nvcc_s:.2f} s, "
-          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = {src: pool.submit(mod.load_library) for src, mod in
+                  (("blurpool.cu", bp), ("flash_attention.cu", fa))}
+        nvcc_s = {src: job.result()[1] for src, job in builds.items()}
+    print(f"build: csrc/blurpool.cu (K1-fwd, K1-bwd) nvcc {nvcc_s['blurpool.cu']:.2f}"
+          f" s, csrc/flash_attention.cu (K2) nvcc "
+          f"{nvcc_s['flash_attention.cu']:.2f} s, both loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    err, ms, plain_ms = phase_kernel_check(bp, dev)
-    err_b, ms_b, plain_ms_b = phase_kernel_bwd_check(bp, dev)
+    k1 = phase_kernel_check(bp, dev)
+    k1_bwd = phase_kernel_bwd_check(bp, dev)
+    k2 = phase_attention_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
     train_launches = phase_train(bp, dev, video, dino)
     del video, dino
+    vit_launches = phase_vit(dev)
     phase_train_reference(dev)
     phase_reference(dev)
+    phase_vit_reference(dev)
 
-    # launches: the sum of the main-path runs (inference, then training),
-    # each counted from 0; ms / plain_ms: the sum over the three bf16 shapes
-    print(json.dumps({"kernels": [{
-        "name": "blurpool_down_nhwc", "route": "cuda",
-        "source": "dino_tracker_tpu_torch/csrc/blurpool.cu",
-        "replaces": "dino_tracker_tpu/ops/blurpool.py:59",
-        "launches": infer_launches + train_launches[0], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "blurpool_up_nhwc", "route": "cuda",
-        "source": "dino_tracker_tpu_torch/csrc/blurpool.cu",
-        "replaces": "dino_tracker_tpu/ops/blurpool.py:67",
-        "launches": train_launches[1], "max_abs_err": err_b,
-        "ms": ms_b, "plain_ms": plain_ms_b}]}))
+    # launches: the sum of the main-path runs, each counted from 0; K1 ms /
+    # plain_ms / bound_ms: the sum over its three bf16 shapes; K2's at the
+    # ViT stage's shape
+    def entry(name, source, replaces, launches, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"dino_tracker_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, **numbers}
+
+    print(json.dumps({"kernels": [
+        entry("blurpool_down_nhwc", "blurpool.cu",
+              "dino_tracker_tpu/ops/blurpool.py:59",
+              infer_launches + train_launches[0], k1),
+        entry("blurpool_up_nhwc", "blurpool.cu",
+              "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1], k1_bwd),
+        entry("flash_attention", "flash_attention.cu",
+              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches, k2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
 
     import torch
-    from dino_tracker_tpu.config import TrainConfig
+    from ..config import TrainConfig
     from ..runtime import DINOTrackerRuntime
 
     cfg = TrainConfig.from_yaml(args.config)

@@ -72,6 +72,23 @@ def _exact_f32_convs(x: torch.Tensor):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def exact_f32_matmuls(x: torch.Tensor):
+    """The GEMM counterpart of ``_exact_f32_convs``: cuBLAS runs f32 GEMMs in
+    TF32 when ``torch.backends.cuda.matmul.allow_tf32`` is set (off by
+    default), so f32 GEMMs on CUDA hold it off for the call. Process-wide
+    flag: not thread-safe."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 class _Conv2d(torch.autograd.Function):
     """Stride-1 conv whose backward holds the same TF32 rule as its forward.
 

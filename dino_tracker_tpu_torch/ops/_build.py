@@ -3,13 +3,15 @@
 Each library is one ``nvcc`` call over ``dino_tracker_tpu_torch/csrc/<name>.cu``
 with a plain C interface (no PyTorch headers, so a build takes seconds), for
 Hopper (``sm_90a``), written into ``<repo>/build/kernels/`` (git-ignored) and
-loaded with ``ctypes``. A library older than its source is rebuilt. Nothing
+loaded with ``ctypes``. A library older than its source is rebuilt. Each
+source has its own lock, so the libraries can build in parallel. Nothing
 here runs at import time: the CPU tests import every module of the port on
 machines with no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import shutil
 import subprocess
@@ -22,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_locks = collections.defaultdict(threading.Lock)  # one per library name
 
 
 def find_nvcc() -> str:
@@ -41,7 +43,7 @@ def build(name: str) -> tuple[str, float]:
     """
     src = os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    with _lock:
+    with _locks[name]:
         if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
             return lib, 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)

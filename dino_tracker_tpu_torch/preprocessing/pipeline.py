@@ -1,0 +1,141 @@
+"""Preprocessing orchestrator of the port: the ViT feature stage (port of
+``dino_tracker_tpu/preprocessing/pipeline.py:64-193`` and ``:291-302``).
+
+Stages ported so far, as the JAX package's ``run()`` calls them:
+  2. DINO feature video (layer 15 tokens, stride 7) — with the fg-mask layer
+     (23) from the same ViT sweep when both share facet and stride;
+  3. fg masks from the layer-23 feature PCA (``fg_mask.py``);
+  4. fg/bg trajectory split (``split_fg_bg.py``).
+Artifacts land in the JAX package's layout (``config.add_config_paths``), so
+the two packages read each other's files. Feature videos are cast to the
+store dtype (f16) on the device and written from a background thread; a
+writer failure is re-raised by ``join_saves``. Stages 1 and 5 (RAFT
+trajectories, best buddies), ``run()`` and ``cli/preprocess.py`` wait for the
+RAFT and best-buddy slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..config import PreprocessConfig, add_config_paths
+from ..models.vit import VisionTransformer, extract_feature_video
+from ..utils import video_io
+from . import fg_mask as fg_lib
+from . import split_fg_bg as split_lib
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass
+class PreprocessingPipeline:
+    data_path: str
+    cfg: PreprocessConfig
+    vit: Optional[VisionTransformer] = None  # on ``device``
+    device: torch.device = torch.device("cuda")
+    # T×3×H×W frames in [0, 1]; when None they are read from the video folder
+    frames: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        self.paths = add_config_paths(self.data_path)
+        self._save_threads = []
+
+    @property
+    def video(self) -> torch.Tensor:
+        """The video, T×3×H×W f32 in [0, 1] on the device (at most
+        ``max_frames`` frames, resized to the config's resolution)."""
+        if self.frames is None:
+            self.frames = torch.from_numpy(video_io.load_video(
+                self.paths["video_folder"],
+                resize=(self.cfg.video_resh, self.cfg.video_resw),
+                num_frames=self.cfg.max_frames))
+        self.frames = self.frames.to(self.device)
+        return self.frames
+
+    def extract_dino_features(self, layer: Union[int, Sequence[int]],
+                              out_path: Union[str, Sequence[str]],
+                              facet: Optional[str] = None,
+                              stride: Optional[int] = None):
+        """One ViT sweep for one layer, or for several in a single pass when
+        ``layer`` and ``out_path`` are lists. Returns the f32 feature
+        video(s) on the device; each artifact is its store-dtype cast, made
+        on the device and written from a background thread."""
+        if self.vit is None:
+            raise ValueError("DINO weights required")
+        single = isinstance(layer, int)
+        layers = [layer] if single else list(layer)
+        out_paths = [out_path] if single else list(out_path)
+        feats = extract_feature_video(
+            self.vit, self.video,
+            stride=self.cfg.dino_stride if stride is None else stride,
+            layer=layers, facet=self.cfg.dino_facet if facet is None else facet,
+            frames_per_batch=self.cfg.extract_frames_per_batch,
+            compute_dtype=_DTYPES[self.cfg.compute_dtype])
+        store = _DTYPES[self.cfg.feature_store_dtype]
+        for f, path in zip(feats, out_paths):
+            stored = f.to(store)  # on the device: halves the fetch, not only the file
+            if self.cfg.async_artifact_save:
+                self._save_async(stored, path)
+            else:
+                self._save(stored, path)
+        return feats[0] if single else feats
+
+    def _save(self, features: torch.Tensor, path: str):
+        video_io.save_npz(path, features=features.cpu().numpy())
+        logger.info("saved %s: %s (%s)", path, tuple(features.shape),
+                    features.dtype)
+
+    def _save_async(self, features: torch.Tensor, path: str):
+        slot = {"exc": None}
+
+        def run():
+            try:
+                self._save(features, path)
+            except BaseException as e:  # re-raised in join_saves
+                slot["exc"] = e
+
+        th = threading.Thread(target=run, name=f"save:{path}")
+        th.start()
+        self._save_threads.append((th, slot))
+
+    def create_fg_masks(self, mask_features: torch.Tensor) -> np.ndarray:
+        """T×H×W {0, 1} masks from the mask-layer features, written as jpg
+        frames to the masks folder (0/255)."""
+        masks = fg_lib.compute_fg_masks(
+            mask_features, (self.cfg.video_resh, self.cfg.video_resw),
+            fg_mask_threshold=self.cfg.fg_mask_threshold).cpu().numpy()
+        video_io.save_video_frames((masks * 255).astype(np.uint8),
+                                   self.paths["masks_path"])
+        return masks
+
+    def split_trajectories(self, trajs: np.ndarray):
+        """Split N×T×2 trajectories by the masks on disk; writes both banks."""
+        masks = video_io.load_masks(self.paths["masks_path"],
+                                    h_resize=self.cfg.video_resh,
+                                    w_resize=self.cfg.video_resw)
+        fg, bg = split_lib.split_fg_bg(trajs, masks)
+        video_io.save_npz(self.paths["fg_trajectories_file"], trajectories=fg)
+        video_io.save_npz(self.paths["bg_trajectories_file"], trajectories=bg)
+        logger.info("split: %d fg / %d bg trajectories", len(fg), len(bg))
+        return fg, bg
+
+    def join_saves(self):
+        """Block until every async artifact write has landed; re-raise the
+        first writer failure."""
+        threads, self._save_threads = self._save_threads, []
+        first_exc = None
+        for th, slot in threads:
+            th.join()
+            if slot["exc"] is not None and first_exc is None:
+                first_exc = slot["exc"]
+        if first_exc is not None:
+            raise first_exc

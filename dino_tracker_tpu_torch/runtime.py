@@ -3,10 +3,10 @@
 Port of dino_tracker_tpu/runtime.py: binds a video's on-disk artifacts
 (frames, the DINO feature stack, fg masks, trajectories, best buddies, a
 checkpoint) to tensors on one device, trains the per-video model and serves
-trajectory and occlusion queries. The path contract, ``TrainConfig``, frame
-loading and TAP-Vid query points are the JAX package's framework-free
-modules; they pull in PyYAML and Pillow, so they are imported where files
-are read.
+trajectory and occlusion queries. The path contract and ``TrainConfig``
+(``config.py``), frame loading (``utils/video_io.py``) and TAP-Vid query
+points (``evaluation/tapvid.py``) are the port's own copies; Pillow is
+imported only where frames are read.
 
 Checkpoints: the port's trainer writes ``state_<step>.pt``; inference loads
 the newest of those, and otherwise a ``state_<step>.msgpack`` written by the
@@ -26,13 +26,16 @@ import numpy as np
 import torch
 
 from . import convert
-from .config import TrackerConfig, tracker_config_from_train
+from .config import (TrackerConfig, TrainConfig, add_config_paths,
+                     tracker_config_from_train)
+from .evaluation.tapvid import get_query_points_from_benchmark_config
 from .inference.infer import ModelInference
 from .models import tracker as tracker_lib
 from .structures import load_bb_data
 from .training import checkpoint as ckpt_lib
 from .training import train as train_lib
 from .training.sampler import BankRotator, build_bank
+from .utils import video_io
 
 logger = logging.getLogger(__name__)
 
@@ -83,12 +86,11 @@ def make_model_inference(model: tracker_lib.Tracker, video_tchw: torch.Tensor,
 @dataclasses.dataclass
 class DINOTrackerRuntime:
     data_path: str
-    cfg: object  # dino_tracker_tpu.config.TrainConfig
+    cfg: TrainConfig
     device: torch.device = torch.device("cuda")
     seed: int = 2
 
     def __post_init__(self):
-        from dino_tracker_tpu.config import add_config_paths
         self.paths = add_config_paths(self.data_path)
         self.tcfg = tracker_config_from_train(self.cfg)
 
@@ -96,7 +98,6 @@ class DINOTrackerRuntime:
         """Every training artifact of the video, on this runtime's device
         (JAX runtime.py:61-106). The feature stack stays f16 (the artifact
         dtype); the step upcasts the gathered frames, which is exact."""
-        from dino_tracker_tpu.utils import video_io
         dev = self.device
         dino = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
         want = self.tcfg.delta_channels[-1]
@@ -151,7 +152,6 @@ class DINOTrackerRuntime:
 
     def get_model_inference(self, step: Optional[int] = None,
                             chunk: int = 4096) -> ModelInference:
-        from dino_tracker_tpu.utils import video_io
         dino = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
         video = video_io.load_video(
             self.paths["video_folder"],
@@ -168,8 +168,6 @@ class DINOTrackerRuntime:
                         step: Optional[int] = None, chunk: int = 4096):
         """Per-query-frame trajectory/occlusion predictions saved as .npy
         (reference inference_benchmark.py:13-41)."""
-        from dino_tracker_tpu.evaluation.tapvid import (
-            get_query_points_from_benchmark_config)
         mi = self.get_model_inference(step, chunk)
         qp = get_query_points_from_benchmark_config(
             benchmark_pickle_path, video_id,
@@ -192,7 +190,6 @@ class DINOTrackerRuntime:
         """Every-``interval``-px grid queries on one frame (reference
         inference_grid.py:12-41), in original-resolution pixels scaled to the
         model resolution."""
-        from dino_tracker_tpu.utils import video_io
         orig_h, orig_w, _ = video_io.get_original_video_res(
             self.paths["video_folder"])
         mi = self.get_model_inference(step, chunk)

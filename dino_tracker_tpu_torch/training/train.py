@@ -13,9 +13,8 @@ JAX package's two compiled phase variants and its ``steps_per_call``
 ``lax.scan`` chunking have no counterpart: the loop runs one step per
 iteration.
 
-``cfg`` is a ``dino_tracker_tpu.config.TrainConfig`` (or any object with
-its fields); this module does not import it, because that module imports
-PyYAML.
+``cfg`` is the port's ``config.TrainConfig`` (or any object with its
+fields).
 """
 
 from __future__ import annotations
@@ -164,7 +163,7 @@ class Trainer:
     """Per-video training driver: phase gates, logging, checkpointing and
     resume, trajectory-bank rotation (reference dino_tracker.py:392-448)."""
 
-    cfg: object  # dino_tracker_tpu.config.TrainConfig
+    cfg: object  # config.TrainConfig, or any object with its fields
     tcfg: TrackerConfig
     data: VideoData
     ckpt_folder: str

@@ -2,6 +2,7 @@
 boundary: dino_tracker_tpu_torch must import no JAX (and, at import time,
 none of the optional file-format packages the GPU machine may lack)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -77,21 +78,86 @@ def test_load_jax_checkpoint_matches_flax(tmp_path, monkeypatch, chunk_bytes):
                                                  ours["batch_stats"]))
 
 
+PORT_MODULES = ('runtime', 'cli.train', 'structures', 'training.train',
+                'training.losses', 'training.contrastive', 'training.cycle',
+                'training.sampler', 'training.checkpoint', 'config',
+                'ops.attention', 'ops.flash_attention', 'models.vit',
+                'models.vit_convert', 'preprocessing.fg_mask',
+                'preprocessing.split_fg_bg', 'preprocessing.pipeline',
+                'utils.video_io', 'utils.native_io', 'evaluation.tapvid')
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import dino_tracker_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL', 'msgpack')\n"
-        "       if m in sys.modules]\n"
-        "mods = ('runtime', 'cli.train', 'structures', 'training.train',\n"
-        "        'training.losses', 'training.contrastive', 'training.cycle',\n"
-        "        'training.sampler', 'training.checkpoint')\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL', 'msgpack', 'imageio',\n"
+        "                   'dino_tracker_tpu') if m in sys.modules]\n"
+        f"mods = {PORT_MODULES!r}\n"
         "print(sum(f'dino_tracker_tpu_torch.{m}' in sys.modules for m in mods),\n"
         "      bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["9", "[]"], out.stdout
+    assert out.stdout.split() == [str(len(PORT_MODULES)), "[]"], out.stdout
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """An AST scan of every source of the port and of chip_smoke.py: no
+    import of jax, flax or dino_tracker_tpu (lazy ones included)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dino_tracker_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), node.lineno, n)
+                          for n in names if n.split(".")[0] in
+                          ("jax", "flax", "dino_tracker_tpu")]
+    assert offenders == []
+
+
+def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
+    """With ``dino_tracker_tpu`` (and jax) unimportable, the port reads the
+    repo's train config, maps the path contract and loads a frame folder."""
+    from PIL import Image
+    frames = tmp_path / "vid" / "video"
+    frames.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 255, (14, 20, 3), np.uint8)).save(
+            frames / f"{i:05d}.png")
+    code = (
+        "import sys\n"
+        "for m in ('dino_tracker_tpu', 'jax', 'flax'):\n"
+        "    sys.modules[m] = None\n"
+        "from dino_tracker_tpu_torch.config import TrainConfig, add_config_paths\n"
+        "from dino_tracker_tpu_torch.runtime import DINOTrackerRuntime\n"
+        "from dino_tracker_tpu_torch.utils import video_io\n"
+        "cfg = TrainConfig.from_yaml('config/train.yaml')\n"
+        "assert cfg.total_iterations == 10000 and cfg.cyc_thresh == 4, cfg\n"
+        f"root = {str(tmp_path / 'vid')!r}\n"
+        "paths = add_config_paths(root)\n"
+        "rt = DINOTrackerRuntime(root, cfg, device='cpu')\n"
+        "assert rt.paths == paths and rt.tcfg.delta_channels[-1] == 1024\n"
+        "v = video_io.load_video(paths['video_folder'])\n"
+        "r = video_io.load_video(paths['video_folder'], resize=(7, 10))\n"
+        "print(v.shape, r.shape, video_io.get_original_video_res("
+        "paths['video_folder']))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)"
