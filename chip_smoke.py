@@ -2,20 +2,25 @@
 """Smoke run of the PyTorch port (dino_tracker_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
   2. build: compiles kernels K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
-     and K1-bwd blurpool_up_nhwc) and K2 (csrc/flash_attention.cu) with
-     nvcc into build/kernels/, one nvcc per source, all started together.
+     and K1-bwd blurpool_up_nhwc), K2 (csrc/flash_attention.cu) and K3
+     (csrc/corr_lookup.cu) with nvcc into build/kernels/, one nvcc per
+     source, all started together.
   3. kernel check: K1-fwd against its plain PyTorch version at the three
      DeltaDINO blurpool shapes of a 16-frame refine chunk, and K1-bwd against
      autograd of the plain version at the three shapes of an 8-frame training
      step, bf16 and f32; K2 against attention_reference at the ViT stage's
      shape [4 frames, 16 heads, S=8108, 64] in bf16, at one frame in f32 and
-     at ragged S = 100 and 1000 in both; with the error bounds and kernel vs
-     plain (and, for K2, F.scaled_dot_product_attention) times from CUDA
-     events.
+     at ragged S = 100 and 1000 in both; K3 against corr_lookup_reference
+     on a pyramid of random 256-channel f32 fmaps for a decode batch of 8
+     pairs at 60×107 with coordinates inside, at the edge and far outside
+     the maps; with the error bounds and kernel vs plain (and, for K2,
+     F.scaled_dot_product_attention, for K3 four F.grid_sample calls) times
+     from CUDA events.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
@@ -44,10 +49,22 @@ Phases, one line or more each (any failure raises and exits non-zero):
      on one frame (gate: median >= 0.995).
   7. reference: the inference entry points on a small f32 input, one f32
      training step (losses and gradients) on a small input from the same
-     init and the same injected batch, and a small f32 ViT through
-     extract_feature_video and compute_fg_masks, each on the GPU and on the
-     CPU (the CPU path is held against the JAX package by the tests).
-Each main path (phases 4, 5, 6) runs with every kernel's launch count set
+     init and the same injected batch, a small f32 ViT through
+     extract_feature_video and compute_fg_masks, and pipeline stage 1 on 6
+     f32 frames of 224×128 plus a RAFT forward with degenerate pyramid
+     levels (48×64), each on the GPU and on the CPU (the CPU path is held
+     against the JAX package by the tests).
+  8. pipeline stage 1 at full width: seeded random RAFT-large weights in the
+     princeton-vl layout (the flow head's last conv scaled by 0.1, so flows
+     stay sub-pixel and trajectories survive), made on the card and loaded
+     by load_raft_state_dict; a synthetic textured T=12 video at 854×476 that
+     moves by (1.5, 0.5) px a frame. PreprocessingPipeline.
+     extract_trajectories_both (encoders once per frame, adjacent flows,
+     both chaining passes over every start frame with its direct flows:
+     24 GRU iterations, f32, 8 pairs a decode batch, every lookup through
+     K3), with its phase times, the trajectory counts, peak memory and one
+     decode batch's time.
+Each main path (phases 4, 5, 6, 8) runs with every kernel's launch count set
 to 0 just before it and read just after. Then one JSON line with the
 kernels, and last {"ok": true, "device": ...}.
 
@@ -57,6 +74,7 @@ Imports no JAX, none of the JAX package's modules, and none of PyYAML,
 imageio or msgpack; Pillow only through the pipeline's mask jpgs.
 """
 
+import argparse
 import dataclasses
 import json
 import math
@@ -95,6 +113,15 @@ BF16_ATTN_TOL = 2.0 ** -6
 N_SPLIT_TRAJ = 100_000
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
+# K3 on stage 1's main path: a decode batch of 8 pairs on the 60×107 grid of
+# 854×476 frames padded to 856×480; bound of K3 against its plain version,
+# in units of the plain output's largest magnitude
+RAFT_T = 12
+LOOKUP_SHAPE = (8, 60, 107)
+LOOKUP_TOL = 1e-5
+# RAFT flows, GPU against CPU, in units of max|flow|; trajectories chained
+# from the same flows on both, in px
+FLOW_TOL, TRAJ_TOL = 1e-4, 1e-4
 
 
 def check(cond, msg):
@@ -112,8 +139,10 @@ def reset_counts():
     """Set every kernel's launch count to 0."""
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
     bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
     fa.flash_attention_cuda.launches = 0
+    wg.corr_lookup_cuda.launches = 0
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -755,11 +784,372 @@ def phase_vit_reference(dev):
     check(err <= 1e-4 and same, "GPU and CPU ViT feature stages disagree")
 
 
+def corr_lookup_bound(pyramid, coords, radius=4):
+    """K3's least time on these inputs: the in-map cells of each pixel's
+    10×10 window at every level read once (4 B each), its coordinates (8 B)
+    read and its 324 outputs (4 B each) written once; 7 f32 FLOP an output.
+    Returns (bound numbers, the all-inside bytes)."""
+    b, _, h, w = coords.shape
+    n = b * h * w
+    side = 2 * radius + 2
+    cells = 0.0
+    for lvl, vol in enumerate(pyramid):
+        axes = []
+        for c, size in ((coords[:, 0], vol.shape[2]), (coords[:, 1], vol.shape[1])):
+            if size == 1:  # every tap reads the one cell
+                axes.append(torch.ones_like(c))
+                continue
+            c = torch.clamp(c / 2 ** lvl, -(radius + 1.0), size + radius)
+            lo = torch.floor(c) - radius
+            axes.append(torch.clamp(torch.minimum(lo + side, torch.tensor(float(size)))
+                                    - torch.clamp(lo, min=0), min=0))
+        cells += float((axes[0] * axes[1]).sum())
+    n_out = len(pyramid) * (2 * radius + 1) ** 2
+    nbytes = 4 * cells + 8 * n + 4 * n_out * n
+    ms, by = bound(7.0 * n_out * n, nbytes, F32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by}, n * (4 * len(pyramid) * side * side
+                                                  + 8 + 4 * n_out)
+
+
+def corr_lookup_grid_sample(pyramid, coords, radius=4):
+    """The lookup as four F.grid_sample calls, one per level, each sampling
+    its maps at the 9×9 tap grid (torchvision RAFT's CorrBlock form), then a
+    cat: timed as K3's library yardstick only; the port never calls it."""
+    b, _, h, w = coords.shape
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32, device=coords.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)  # (dx, dy)
+    centre = coords.permute(0, 2, 3, 1).reshape(-1, 1, 1, 2)
+    out = []
+    for lvl, vol in enumerate(pyramid):
+        hl, wl = vol.shape[1:]
+        pts = centre / 2 ** lvl + delta
+        grid = torch.stack([2 * pts[..., 0] / max(wl - 1, 1) - 1,
+                            2 * pts[..., 1] / max(hl - 1, 1) - 1], dim=-1)
+        out.append(F.grid_sample(vol[:, None], grid, align_corners=True).reshape(b, h, w, -1))
+    return torch.cat(out, dim=-1).permute(0, 3, 1, 2)
+
+
+def lookup_inputs(dev, b, h, w, seed):
+    """A real pyramid (random 256-channel f32 fmaps) and coordinates: the grid
+    moved by N(0, 2) px, a tenth of the pixels within 6 px of an edge of the
+    map, and one in fifty 50-300 px outside it."""
+    from dino_tracker_tpu_torch.models import raft
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1, f2 = (torch.randn((b, 256, h, w), generator=g, device=dev) for _ in range(2))
+    pyramid = raft.build_corr_pyramid(f1, f2)
+    del f1, f2
+    coords = raft.coords_grid(b, h, w, dev)
+    coords += torch.randn(coords.shape, generator=g, device=dev) * 2
+
+    def rand(scale, shift=0.0):
+        return torch.rand((b, h, w), generator=g, device=dev) * scale + shift
+
+    for axis, size in ((0, w), (1, h)):
+        edge = rand(1.0) < 0.1
+        side = torch.where(rand(1.0) < 0.5, 0.0, size - 1.0)
+        coords[:, axis] = torch.where(edge, side + rand(12.0, -6.0), coords[:, axis])
+        far = rand(1.0) < 0.02
+        sign = torch.where(rand(1.0) < 0.5, -1.0, 1.0)
+        coords[:, axis] = torch.where(far, side + sign * rand(250.0, 50.0), coords[:, axis])
+    return pyramid, coords.contiguous()
+
+
+def phase_corr_lookup_check(dev):
+    """K3 against corr_lookup_reference at the main path's shape, with the
+    bound, kernel, plain and 4× F.grid_sample times from CUDA events."""
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    pyramid, coords = lookup_inputs(dev, *LOOKUP_SHAPE, seed=12)
+    out = wg.corr_lookup_cuda(pyramid, coords)
+    ref = wg.corr_lookup_reference(pyramid, coords)
+    lib_out = corr_lookup_grid_sample(pyramid, coords)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    lib_err = (lib_out - ref).abs().max().item()
+    check(out.shape == ref.shape == (LOOKUP_SHAPE[0], 324) + LOOKUP_SHAPE[1:]
+          and err <= LOOKUP_TOL * scale,
+          f"K3 {LOOKUP_SHAPE}: max abs err {err} > bound {LOOKUP_TOL * scale}")
+    zero_share = float((ref == 0).float().mean())
+    del ref, lib_out
+    ms = cuda_ms(lambda: wg.corr_lookup_cuda(pyramid, coords))
+    plain_ms = cuda_ms(lambda: wg.corr_lookup_reference(pyramid, coords), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: corr_lookup_grid_sample(pyramid, coords))
+    numbers, inside_bytes = corr_lookup_bound(pyramid, coords)
+    print(f"kernel check: K3 {LOOKUP_SHAPE[0]} pairs x {LOOKUP_SHAPE[1]}x"
+          f"{LOOKUP_SHAPE[2]}, levels {[tuple(v.shape[1:]) for v in pyramid]} f32: "
+          f"max_abs_err {err:.3g} (bound {LOOKUP_TOL * scale:.3g}; zero outputs "
+          f"{zero_share:.3f}), 4x grid_sample max diff {lib_err:.3g}; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.3f} ms, 4x grid_sample {library_ms:.3f} ms, bound "
+          f"{numbers['bound_ms']:.4f} ms ({numbers['bound_by']}; all windows inside: "
+          f"{inside_bytes / HBM_BYTES * 1e3:.4f} ms)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **numbers,
+            "library_ms": library_ms}
+
+
+def raft_state(dev, seed):
+    """Random RAFT-large weights under the princeton-vl keys (``module.``
+    prefixed), made on ``dev``: convs ~U(±1/√fan_in) (torch's default
+    bounds), BN affine and statistics near identity. The flow head's last
+    conv is scaled by 0.1: unscaled, the random flows run to a few px with
+    forward and backward flows unrelated, so the cycle check kills every
+    trajectory; scaled, they stay near 0.3 px, most pixels survive, and the
+    harvest works at the load of a real video."""
+    from torch import nn
+    from dino_tracker_tpu_torch.models import raft
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(shape, scale, shift=0.0):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * scale + shift
+
+    sd = {}
+    for name, m in raft.RAFT().named_modules():
+        if isinstance(m, nn.Conv2d):
+            bound_ = 1 / math.sqrt(m.weight[0].numel())
+            sd[f"{name}.weight"] = u(m.weight.shape, bound_)
+            sd[f"{name}.bias"] = u(m.bias.shape, bound_)
+        elif isinstance(m, nn.BatchNorm2d):
+            c = m.num_features
+            sd.update({f"{name}.weight": u((c,), 0.2, 1.0), f"{name}.bias": u((c,), 0.1),
+                       f"{name}.running_mean": u((c,), 0.1),
+                       f"{name}.running_var": u((c,), 0.5, 1.0)})
+    for k in ("weight", "bias"):
+        sd[f"update_block.flow_head.conv2.{k}"] *= 0.1
+    return {f"module.{k}": v for k, v in sd.items()}
+
+
+def textured_video(t, h, w, dev, shift=(1.5, 0.5)):
+    """T×3×H×W in [0, 1]: a smooth colour texture moving by ``shift`` (x, y)
+    px a frame."""
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    frames = []
+    for i in range(t):
+        x, y = xs - shift[0] * i, ys - shift[1] * i
+        frames.append(torch.stack([
+            0.5 + 0.25 * torch.sin(0.11 * x + 0.05 * y) * torch.cos(0.07 * y),
+            0.5 + 0.25 * torch.sin(0.05 * x - 0.13 * y + 1.0),
+            0.5 + 0.2 * torch.cos(0.03 * x + 0.02 * y) * torch.sin(0.09 * x)]))
+    return torch.stack(frames).clamp(0, 1)
+
+
+def decode_batches(t, pair_batch=8, min_len=2):
+    """Decode batches of stage 1 at T frames: adjacent flows both ways, then
+    each start frame's direct flows both ways."""
+    per = lambda n: -(-n // pair_batch)
+    return 2 * per(t - 1) + 2 * sum(per(t - 1 - s) for s in range(t - (min_len - 1)))
+
+
+def check_trajectories(trajs, t, h, w, what):
+    finite = ~np.isnan(trajs).any(-1)
+    check(trajs.ndim == 3 and trajs.shape[1:] == (t, 2) and trajs.dtype == np.float32,
+          f"{what}: {trajs.shape} {trajs.dtype}")
+    pts = trajs[finite]
+    check(np.isfinite(pts).all() and (pts >= 0).all() and (pts[:, 0] <= w - 1).all()
+          and (pts[:, 1] <= h - 1).all(), f"{what}: a point outside the frame")
+    check((finite.sum(1) >= 2).all(), f"{what}: a trajectory shorter than 2 frames")
+
+
+def phase_raft(dev, t=RAFT_T):
+    """Pipeline stage 1 at full width; returns K3's launch count in it."""
+    from dino_tracker_tpu_torch.config import PreprocessConfig
+    from dino_tracker_tpu_torch.models import raft
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
+    from dino_tracker_tpu_torch.utils import video_io
+    cfg = PreprocessConfig()  # RAFT 24 iterations f32, thresholds 1.5 / 2.5
+    h, w = cfg.video_resh, cfg.video_resw
+    model = raft.load_raft_state_dict(raft_state(dev, 11), dev)
+    root = os.path.join(WORK_DIR, "raft")
+    shutil.rmtree(root, ignore_errors=True)
+    pipe = PreprocessingPipeline(root, cfg, device=dev, frames=textured_video(t, h, w, dev),
+                                 raft=model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    trajs, unfiltered = pipe.extract_trajectories_both()
+    total = time.perf_counter() - t0
+    launches = wg.corr_lookup_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batches = decode_batches(t)
+    check(launches == cfg.raft_iters * batches,
+          f"K3 launched {launches} times in stage 1, expected {cfg.raft_iters} x "
+          f"{batches} decode batches")
+    for arr, what in ((trajs, "filtered"), (unfiltered, "unfiltered")):
+        check_trajectories(arr, t, h, w, what)
+    check(np.array_equal(video_io.load_npz(pipe.paths["trajectories_file"])["trajectories"],
+                         trajs, equal_nan=True), "trajectories.npz is not the result")
+    fwd, bwd = pipe.flow_engine.adjacent_flows()
+    check(fwd.shape == bwd.shape == (t - 1, 2, h, w) and bool(fwd.isfinite().all())
+          and bool(bwd.isfinite().all()), "adjacent flows: shape or non-finite")
+
+    # one full decode batch (8 pairs) and its correlation pyramid, warm
+    eng = pipe.flow_engine
+    ia, ib = np.zeros(8, np.int64), np.arange(1, 9) % t
+    decode_ms = cuda_ms(lambda: eng.decode(ia, ib), iters=3, warmup=1)
+    fmaps = eng.encodings()[0]
+    pyramid_ms = cuda_ms(lambda: raft.build_corr_pyramid(fmaps[ia], fmaps[ib]), iters=3)
+    tm = pipe.timings
+    direct = batches - 2 * -(-(t - 1) // 8)
+    print(f"raft: stage 1, T={t} {w}x{h}, RAFT-large {cfg.raft_iters} iterations "
+          f"{cfg.raft_compute_dtype}, 8 pairs a decode batch: encode {tm['encode']:.3f} s, "
+          f"adjacent flows {tm['adjacent_flows']:.3f} s, direct sweep and chaining "
+          f"{tm['direct_sweep_and_chaining']:.3f} s, harvest {tm['harvest']:.3f} s, "
+          f"total {total:.3f} s; {len(trajs)} filtered / {len(unfiltered)} unfiltered "
+          f"trajectories; peak memory {peak:.2f} GiB; one decode batch (8 pairs) "
+          f"{decode_ms:.2f} ms, its pyramid {pyramid_ms:.2f} ms; {batches} decode "
+          f"batches ({direct} direct), K3 launches {launches}", flush=True)
+    return launches, decode_ms, pyramid_ms, eng
+
+
+def profile_decode(eng, ia, ib):
+    """Device time of one decode batch by kernel (torch.profiler, CUDA
+    activity only): the top kernels and the sums by kind. Kinds by kernel
+    name: K3; cuDNN convolutions (implicit GEMM and FFT kernels); GEMMs (the
+    pyramid); everything else (elementwise, concatenation, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.decode(ia, ib)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, evt.count, evt.key))
+    kinds = {"K3 corr_lookup": 0.0, "convolutions": 0.0, "GEMM": 0.0, "other": 0.0}
+    for ms, _, name in rows:
+        low = name.lower()
+        if "corr_lookup" in low:
+            kinds["K3 corr_lookup"] += ms
+        elif any(k in low for k in ("conv", "fprop", "cudnn", "winograd", "xmma", "fft",
+                                    "complex", "region_transform")):
+            kinds["convolutions"] += ms
+        elif "gemm" in low:
+            kinds["GEMM"] += ms
+        else:
+            kinds["other"] += ms
+    total = sum(kinds.values())
+    if total == 0:
+        print("raft: profile of one decode batch: no device time recorded", flush=True)
+        return
+    print(f"raft: profile of one decode batch (8 pairs, device time {total:.1f} ms): "
+          + ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})" for k, v in kinds.items()),
+          flush=True)
+    for ms, count, name in sorted(rows, reverse=True)[:12]:
+        print(f"raft:   {ms:9.2f} ms {count:5d}x {name[:110]}", flush=True)
+
+
+def conv_table(model, dev, n=8, hw=(60, 107)):
+    """Each conv of the update block alone at a decode batch's shape (n pairs
+    on the 60×107 grid, f32, TF32 off), NCHW and channels-last input: ms
+    from CUDA events and the achieved f32 TFLOP/s."""
+    from torch import nn
+    from dino_tracker_tpu_torch.models import raft
+    from dino_tracker_tpu_torch.models.nn import _exact_f32_convs
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, m in model.update_block.named_modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        x = torch.randn((n, m.in_channels, *hw), generator=g, device=dev)
+        flops = 2.0 * m.weight.numel() * n * hw[0] * hw[1]
+        times = []
+        for layout in (torch.contiguous_format, torch.channels_last):
+            xl = x.contiguous(memory_format=layout)
+            with torch.no_grad(), _exact_f32_convs(xl):
+                times.append(cuda_ms(lambda: m(xl), iters=5, warmup=2))
+        print(f"raft: conv {name} {m.in_channels}->{m.out_channels} "
+              f"{tuple(m.kernel_size)} x{n}: NCHW {times[0]:.2f} ms "
+              f"({flops / times[0] / 1e9:.1f} TFLOP/s), channels-last {times[1]:.2f} ms "
+              f"({flops / times[1] / 1e9:.1f} TFLOP/s)", flush=True)
+        if name == "encoder.conv":  # as the motion encoder runs it
+            with torch.no_grad(), _exact_f32_convs(x):
+                ms = cuda_ms(lambda: raft._conv_out_padded(m, x, 128), iters=5, warmup=2)
+            print(f"raft: conv {name} with 128 outputs, cut to {m.out_channels}: "
+                  f"{ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+
+
+def phase_raft_reference(dev):
+    """Stage 1 on 6 f32 frames of 224×128 (12 iterations), and one RAFT
+    forward at 48×64 (degenerate levels), GPU against CPU from the same
+    weights. Flows within FLOW_TOL of max|flow|. Trajectories: the CPU
+    chains the GPU's flows (adjacent and direct) and must give the GPU's
+    trajectories, counts equal and positions within TRAJ_TOL px; the CPU
+    pipeline's own trajectories, from its own flows, are printed beside
+    them (a point within float noise of a threshold may flip)."""
+    from dino_tracker_tpu_torch.config import PreprocessConfig
+    from dino_tracker_tpu_torch.models import raft
+    from dino_tracker_tpu_torch.preprocessing import trajectories as traj
+    from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
+    cpu = torch.device("cpu")
+    state = raft_state(cpu, 13)
+    t, h, w = 6, 128, 224
+    cfg = PreprocessConfig(video_resh=h, video_resw=w, raft_iters=12)
+    video = textured_video(t, h, w, cpu)
+    out = []  # (trajectories, flows, engine) on the GPU, then on the CPU
+    for i, d in enumerate((dev, cpu)):
+        root = os.path.join(WORK_DIR, f"raft_ref_{i}")
+        shutil.rmtree(root, ignore_errors=True)
+        pipe = PreprocessingPipeline(root, cfg, device=d, frames=video.clone(),
+                                     raft=raft.load_raft_state_dict(state, d))
+        res = pipe.extract_trajectories_both()
+        eng = pipe.flow_engine
+        out.append((res, [f.cpu() for f in eng.adjacent_flows()]
+                    + [eng.direct_flows(0, cfg.threshold)[0].cpu()], eng))
+    (gpu_res, gpu_flows, gpu_eng), (cpu_res, cpu_flows, _) = out
+    flow_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(gpu_flows, cpu_flows))
+    chained = traj.extract_trajectories_dual(
+        gpu_flows[0], gpu_flows[1],
+        direct_flow_fn=lambda s: [x.cpu() for x in gpu_eng.direct_flows(s, cfg.threshold)],
+        threshold=cfg.threshold, min_trajectory_length=cfg.min_trajectory_length,
+        direct_flow_threshold=cfg.direct_flow_threshold)
+    same = all(a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b))
+               for a, b in zip(gpu_res, chained))
+    traj_err = max((float(np.nanmax(np.abs(a - b))) if len(a) else 0.0)
+                   for a, b in zip(gpu_res, chained)) if same else float("inf")
+
+    rng = np.random.default_rng(14)
+    img1, img2 = (torch.from_numpy(rng.random((2, 3, 48, 64), dtype=np.float32))
+                  for _ in range(2))
+    small = [raft.raft_forward(raft.load_raft_state_dict(state, d), img1.to(d),
+                               img2.to(d), 12).cpu() for d in (dev, cpu)]
+    small_err = float((small[0] - small[1]).abs().max() / small[1].abs().max())
+    print(f"reference: stage 1 T={t} {w}x{h} f32 ({cfg.raft_iters} iterations): GPU vs "
+          f"CPU flows max diff {flow_err:.3g} of max|flow| (bound {FLOW_TOL}); "
+          f"trajectories {[len(a) for a in gpu_res]} on the GPU, "
+          f"{[len(a) for a in chained]} chained on the CPU from the GPU's flows "
+          f"(max diff {traj_err:.3g} px, bound {TRAJ_TOL}), "
+          f"{[len(a) for a in cpu_res]} from the CPU's own flows; RAFT forward 48x64 "
+          f"(degenerate levels) GPU vs CPU {small_err:.3g} of max|flow|", flush=True)
+    check(flow_err <= FLOW_TOL and small_err <= FLOW_TOL,
+          "GPU and CPU RAFT flows disagree")
+    check(same and traj_err <= TRAJ_TOL and len(gpu_res[1]) > 0,
+          "GPU and CPU chaining disagree")
+
+
+def build_kernels(sources):
+    """nvcc for each (name, module) at once; returns each source's seconds."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        jobs = {name: pool.submit(mod.load_library) for name, mod in sources}
+        nvcc_s = {name: job.result()[1] for name, job in jobs.items()}
+    print("build: " + ", ".join(f"csrc/{name} nvcc {s:.2f} s" for name, s in nvcc_s.items())
+          + f", all loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--raft-frames", type=int, default=0,
+                    help="run only the K3 build and stage 1 at this many frames")
+    args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -769,30 +1159,48 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = {src: pool.submit(mod.load_library) for src, mod in
-                  (("blurpool.cu", bp), ("flash_attention.cu", fa))}
-        nvcc_s = {src: job.result()[1] for src, job in builds.items()}
-    print(f"build: csrc/blurpool.cu (K1-fwd, K1-bwd) nvcc {nvcc_s['blurpool.cu']:.2f}"
-          f" s, csrc/flash_attention.cu (K2) nvcc "
-          f"{nvcc_s['flash_attention.cu']:.2f} s, both loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if args.raft_frames:  # stage 1 alone, then where one decode batch's time goes
+        from dino_tracker_tpu_torch.models import raft
+        build_kernels([("corr_lookup.cu", wg)])
+        eng = phase_raft(dev, args.raft_frames)[3]
+        ia, ib = np.zeros(8, np.int64), np.arange(1, 9) % args.raft_frames
+        profile_decode(eng, ia, ib)
+        conv_table(eng.model, dev)
+        conv_table(eng.model, dev, n=1)
+        # raft_decode itself on n pairs, as the engine ran short batches
+        # before it padded them to 8
+        fmaps, nets, inps = eng.encodings()
+        by_n = [cuda_ms(lambda: raft.raft_decode(eng.model, fmaps[ia[:n]], fmaps[ib[:n]],
+                                                 nets[ia[:n]], inps[ia[:n]]),
+                        iters=2, warmup=1) for n in range(1, 9)]
+        print("raft: raft_decode by pairs in the batch, unpadded: " + ", ".join(
+            f"{n} {ms:.1f} ms" for n, ms in enumerate(by_n, 1)), flush=True)
+        torch.backends.cudnn.benchmark = True  # cuDNN times its algorithms
+        ms = cuda_ms(lambda: eng.decode(ia, ib), iters=3, warmup=1)
+        torch.backends.cudnn.benchmark = False
+        print(f"raft: one decode batch with torch.backends.cudnn.benchmark on: "
+              f"{ms:.2f} ms", flush=True)
+        return
+    build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
+                   ("corr_lookup.cu", wg)])
 
     k1 = phase_kernel_check(bp, dev)
     k1_bwd = phase_kernel_bwd_check(bp, dev)
     k2 = phase_attention_check(dev)
+    k3 = phase_corr_lookup_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
     train_launches = phase_train(bp, dev, video, dino)
     del video, dino
     vit_launches = phase_vit(dev)
+    raft_launches = phase_raft(dev)[0]
     phase_train_reference(dev)
     phase_reference(dev)
     phase_vit_reference(dev)
+    phase_raft_reference(dev)
 
     # launches: the sum of the main-path runs, each counted from 0; K1 ms /
     # plain_ms / bound_ms: the sum over its three bf16 shapes; K2's at the
-    # ViT stage's shape
+    # ViT stage's shape; K3's at one decode batch's
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
                 "source": f"dino_tracker_tpu_torch/csrc/{source}",
@@ -805,7 +1213,9 @@ def main():
         entry("blurpool_up_nhwc", "blurpool.cu",
               "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1], k1_bwd),
         entry("flash_attention", "flash_attention.cu",
-              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches, k2)]}))
+              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches, k2),
+        entry("corr_lookup", "corr_lookup.cu",
+              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches, k3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,12 @@
-"""Preprocessing orchestrator of the port: the ViT feature stage (port of
-``dino_tracker_tpu/preprocessing/pipeline.py:64-193`` and ``:291-302``).
+"""Preprocessing orchestrator of the port: RAFT trajectories and the ViT
+feature stage (port of ``dino_tracker_tpu/preprocessing/pipeline.py:64-193``
+and ``:291-302``).
 
 Stages ported so far, as the JAX package's ``run()`` calls them:
+  1. RAFT flows → chained trajectories: ``extract_trajectories_both`` (both
+     passes, with and without the direct-flow filter, in one sweep; the
+     filtered one written as ``trajectories.npz``) and the single pass
+     ``extract_trajectories`` (``run()`` takes it when the filter is off);
   2. DINO feature video (layer 15 tokens, stride 7) — with the fg-mask layer
      (23) from the same ViT sweep when both share facet and stride;
   3. fg masks from the layer-23 feature PCA (``fg_mask.py``);
@@ -9,9 +14,8 @@ Stages ported so far, as the JAX package's ``run()`` calls them:
 Artifacts land in the JAX package's layout (``config.add_config_paths``), so
 the two packages read each other's files. Feature videos are cast to the
 store dtype (f16) on the device and written from a background thread; a
-writer failure is re-raised by ``join_saves``. Stages 1 and 5 (RAFT
-trajectories, best buddies), ``run()`` and ``cli/preprocess.py`` wait for the
-RAFT and best-buddy slices.
+writer failure is re-raised by ``join_saves``. Stage 5 (best buddies),
+``run()`` and ``cli/preprocess.py`` wait for the best-buddy slice.
 """
 
 from __future__ import annotations
@@ -19,16 +23,20 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
-from typing import Optional, Sequence, Union
+import time
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..config import PreprocessConfig, add_config_paths
+from ..models.raft import RAFT
 from ..models.vit import VisionTransformer, extract_feature_video
 from ..utils import video_io
 from . import fg_mask as fg_lib
 from . import split_fg_bg as split_lib
+from . import trajectories as traj_lib
+from .flow import RaftFlowEngine
 
 logger = logging.getLogger(__name__)
 
@@ -44,10 +52,14 @@ class PreprocessingPipeline:
     device: torch.device = torch.device("cuda")
     # T×3×H×W frames in [0, 1]; when None they are read from the video folder
     frames: Optional[torch.Tensor] = None
+    raft: Optional[RAFT] = None  # on ``device``
 
     def __post_init__(self):
         self.paths = add_config_paths(self.data_path)
         self._save_threads = []
+        self._engine = None
+        # host seconds of stage 1's phases, each ending in a device sync
+        self.timings: Dict[str, float] = {}
 
     @property
     def video(self) -> torch.Tensor:
@@ -60,6 +72,64 @@ class PreprocessingPipeline:
                 num_frames=self.cfg.max_frames))
         self.frames = self.frames.to(self.device)
         return self.frames
+
+    @property
+    def flow_engine(self) -> RaftFlowEngine:
+        if self._engine is None:
+            if self.raft is None:
+                raise ValueError("RAFT weights required")
+            self._engine = RaftFlowEngine(
+                self.raft, self.video, num_iters=self.cfg.raft_iters,
+                compute_dtype=_DTYPES[self.cfg.raft_compute_dtype], device=self.device)
+        return self._engine
+
+    def _timed(self, name: str, fn):
+        """``fn()``, its host seconds up to a device sync kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings[name] = time.perf_counter() - t0
+        return out
+
+    def _adjacent_flows(self):
+        eng = self.flow_engine
+        self._timed("encode", eng.encodings)
+        logger.info("adjacent RAFT flows (%d pairs)", eng.t - 1)
+        return self._timed("adjacent_flows", eng.adjacent_flows)
+
+    def extract_trajectories(self, use_direct_filter: bool, out_path: str) -> np.ndarray:
+        """One chaining pass, with or without the direct-flow filter; writes
+        ``out_path`` and returns the N×T×2 trajectories."""
+        fwd, bwd = self._adjacent_flows()
+        direct_fn = None
+        if use_direct_filter:
+            direct_fn = lambda s: self.flow_engine.direct_flows(s, self.cfg.threshold)
+        trajs = self._timed("chaining", lambda: traj_lib.extract_trajectories(
+            fwd, bwd, threshold=self.cfg.threshold,
+            min_trajectory_length=self.cfg.min_trajectory_length,
+            direct_flow_fn=direct_fn,
+            direct_flow_threshold=self.cfg.direct_flow_threshold))
+        video_io.save_npz(out_path, trajectories=trajs)
+        logger.info("saved %s: %s", out_path, trajs.shape)
+        return trajs
+
+    def extract_trajectories_both(self):
+        """Stage 1 and the best-buddy stage's unfiltered pass in one sweep
+        over the start frames (the reference runs its chaining script once
+        per pass). Writes the filtered trajectories to ``trajectories.npz``
+        and returns (filtered, unfiltered)."""
+        fwd, bwd = self._adjacent_flows()
+        eng = self.flow_engine
+        trajs, unfiltered = traj_lib.extract_trajectories_dual(
+            fwd, bwd, direct_flow_fn=lambda s: eng.direct_flows(s, self.cfg.threshold),
+            threshold=self.cfg.threshold,
+            min_trajectory_length=self.cfg.min_trajectory_length,
+            direct_flow_threshold=self.cfg.direct_flow_threshold,
+            timings=self.timings)
+        video_io.save_npz(self.paths["trajectories_file"], trajectories=trajs)
+        logger.info("saved %s: %s", self.paths["trajectories_file"], trajs.shape)
+        return trajs, unfiltered
 
     def extract_dino_features(self, layer: Union[int, Sequence[int]],
                               out_path: Union[str, Sequence[str]],

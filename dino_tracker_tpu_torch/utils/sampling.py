@@ -1,5 +1,6 @@
-"""Feature and mask sampling (port of dino_tracker_tpu/utils/sampling.py
-``sample_feature_video_thwc`` and the 2-D lookup the losses use).
+"""Feature, mask and flow sampling (port of dino_tracker_tpu/utils/sampling.py
+``sample_feature_video_thwc``, ``bilinear_sampler_pixel`` and the 2-D lookup
+the losses use).
 
 Trilinear sampling: torch ``grid_sample`` semantics (align_corners=True,
 border clamp) written as row gathers on the (T·H·W)×C view of a channels-last
@@ -55,6 +56,18 @@ def sample_feature_video_thwc(features_thwc: torch.Tensor,
     c0 = c00 * (1 - wy) + c01 * wy
     c1 = c10 * (1 - wy) + c11 * wy
     return c0 * (1 - wz) + c1 * wz
+
+
+def bilinear_sampler_pixel(img_nchw: torch.Tensor,
+                           coords_nhw2: torch.Tensor) -> torch.Tensor:
+    """The flow-warp sampler (JAX ``utils/sampling.py:226-238``): sample
+    N×C×H×W at N×Ho×Wo pixel (x, y) coords -> N×C×Ho×Wo, bilinear, zero
+    padding, align_corners=True, after normalising x by W-1 and y by H-1."""
+    _, _, h, w = img_nchw.shape
+    x = 2 * coords_nhw2[..., 0] / (w - 1) - 1
+    y = 2 * coords_nhw2[..., 1] / (h - 1) - 1
+    return F.grid_sample(img_nchw, torch.stack([x, y], dim=-1), mode="bilinear",
+                         padding_mode="zeros", align_corners=True)
 
 
 def sample_masks_at_points(masks_phw: torch.Tensor, coords_pk2: torch.Tensor,

@@ -84,7 +84,9 @@ PORT_MODULES = ('runtime', 'cli.train', 'structures', 'training.train',
                 'ops.attention', 'ops.flash_attention', 'models.vit',
                 'models.vit_convert', 'preprocessing.fg_mask',
                 'preprocessing.split_fg_bg', 'preprocessing.pipeline',
-                'utils.video_io', 'utils.native_io', 'evaluation.tapvid')
+                'utils.video_io', 'utils.native_io', 'evaluation.tapvid',
+                'models.raft', 'ops.window_gather', 'preprocessing.flow',
+                'preprocessing.trajectories', 'utils.native_traj')
 
 
 def test_port_imports_no_jax():
@@ -131,7 +133,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
 
 def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
     """With ``dino_tracker_tpu`` (and jax) unimportable, the port reads the
-    repo's train config, maps the path contract and loads a frame folder."""
+    repo's train config, maps the path contract, loads a frame folder and
+    chains trajectories (RAFT, flow engine, chaining and the native
+    occupancy update imported)."""
     from PIL import Image
     frames = tmp_path / "vid" / "video"
     frames.mkdir(parents=True)
@@ -155,9 +159,15 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
         "v = video_io.load_video(paths['video_folder'])\n"
         "r = video_io.load_video(paths['video_folder'], resize=(7, 10))\n"
         "print(v.shape, r.shape, video_io.get_original_video_res("
-        "paths['video_folder']))\n")
+        "paths['video_folder']))\n"
+        "import numpy as np, torch\n"
+        "from dino_tracker_tpu_torch.models import raft\n"
+        "from dino_tracker_tpu_torch.preprocessing import flow, trajectories\n"
+        "fwd = torch.zeros(2, 2, 6, 7)\n"
+        "print(trajectories.extract_trajectories(fwd, fwd).shape)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[0] == "(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)"
+    assert out.stdout.split("\n")[:2] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
+                                          "(42, 3, 2)"]
