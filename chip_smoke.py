@@ -14,8 +14,11 @@ Phases, one line or more each (any failure raises and exits non-zero):
      DeltaDINO blurpool shapes of a 16-frame refine chunk, and K1-bwd against
      autograd of the plain version at the three shapes of an 8-frame training
      step, bf16 and f32; K2 against attention_reference at the ViT stage's
-     shape [4 frames, 16 heads, S=8108, 64] in bf16, at one frame in f32 and
-     at ragged S = 100 and 1000 in both; K3 against corr_lookup_reference
+     shape [4 frames, 16 heads, S=8108, 64] in bf16 on contiguous inputs and
+     on the ViT's layout (permuted views of one qkv buffer, which it reads
+     without copies), at one frame in f32 and at ragged S = 100 and 1000 in
+     both, timed with 3 and 2 consumer warpgroups, with TFLOP/s and the
+     fraction of its bound; K3 against corr_lookup_reference
      on a pyramid of random 256-channel f32 fmaps for a decode batch of 8
      pairs at 60×107 with coordinates inside, at the edge and far outside
      the maps; with the error bounds and kernel vs plain (and, for K2,
@@ -281,14 +284,25 @@ def phase_kernel_bwd_check(bp, dev):
             **blurpool_bound(TRAIN_SHAPES)}
 
 
+def qkv_views(shape, g, dev):
+    """q, k, v [B, H, S, 64] as the ViT makes them: permuted views of one bf16
+    [B, S, 3·H·64] qkv buffer (models/vit.py)."""
+    b, h, s, d = shape
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device=dev).bfloat16()
+    return qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+
+
 def phase_attention_check(dev):
     """K2 against attention_reference: at the main path's shape in bf16 (the
-    plain version frame by frame: one frame's f32 scores take 4.2 GB), at
-    one frame in f32, and at ragged S in both dtypes. Bounds: bf16
-    2^-6·max|out|, two to four bf16 ulps at the top of the output's range
-    (the kernel rounds the unnormalised probabilities to bf16, the plain
-    version the normalised ones; both round the output), f32 2e-5. Times at the main
-    path's shape: K2, the plain version and F.scaled_dot_product_attention
+    plain version frame by frame: one frame's f32 scores take 4.2 GB), both
+    on contiguous q, k, v and on the main path's layout (the permuted views
+    of one [4, 8108, 3·1024] qkv buffer, through multi_head_attention), at
+    one frame in f32, and at ragged S in both dtypes and both bf16 layouts.
+    Bounds: bf16 2^-6·max|out|, two to four bf16 ulps at the top of the
+    output's range (the kernel rounds the unnormalised probabilities to bf16,
+    the plain version the normalised ones; both round the output), f32 2e-5.
+    Times at the main path's shape: K2 on the qkv views (the main path) and
+    on contiguous inputs, the plain version and F.scaled_dot_product_attention
     (timed only: the port never calls it)."""
     from dino_tracker_tpu_torch.ops import attention as attn
     from dino_tracker_tpu_torch.ops import flash_attention as fa
@@ -300,36 +314,65 @@ def phase_attention_check(dev):
                           for i in range(q.shape[0])])
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(ATTN_SHAPE, bf16), ((1,) + ATTN_SHAPE[1:], f32)] + [
-        ((2, 3, s, 64), dt) for s in (100, 1000) for dt in (bf16, f32)]
-    for shape, dtype in cases:
-        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                   for _ in range(3))
-        out = fa.flash_attention_cuda(q, k, v, ATTN_SCALE)
+    cases = [(ATTN_SHAPE, bf16, "qkv views"), (ATTN_SHAPE, bf16, "contiguous"),
+             ((1,) + ATTN_SHAPE[1:], f32, "contiguous")] + [
+        ((2, 3, s, 64), dt, lay) for s in (100, 1000)
+        for dt, lay in ((bf16, "qkv views"), (bf16, "contiguous"), (f32, "contiguous"))]
+    inputs = {}
+    for shape, dtype, layout in cases:
+        if layout == "qkv views":
+            q, k, v = qkv_views(shape, g, dev)
+        else:
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+        out = attn.multi_head_attention(q, k, v, ATTN_SCALE)
         ref = plain(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = BF16_ATTN_TOL * ref.float().abs().max().item() if dtype == bf16 else 2e-5
         check(out.shape == ref.shape and out.dtype == dtype and err <= tol,
-              f"K2 {shape} {dtype}: max abs err {err} > bound {tol}")
-        print(f"kernel check: K2 {shape} {str(dtype)[6:]}: max_abs_err "
+              f"K2 {shape} {dtype} {layout}: max abs err {err} > bound {tol}")
+        if dtype == bf16:  # a [B, S, H, 64] buffer, so the ViT's transpose is a view
+            b, h, s, d = shape
+            check(out.stride() == (s * h * d, d, h * d, 1),
+                  f"K2 {shape} bf16 output strides {out.stride()}")
+        print(f"kernel check: K2 {shape} {str(dtype)[6:]} {layout}: max_abs_err "
               f"{err:.3g} (bound {tol:.3g})", flush=True)
-        if shape == ATTN_SHAPE:
-            main = (q, k, v, err)
+        if shape == ATTN_SHAPE and dtype == bf16:
+            inputs[layout] = (q, k, v, err)
         del out, ref
-    q, k, v, err = main
-    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, ATTN_SCALE))
-    plain_ms = cuda_ms(lambda: plain(q, k, v), iters=3, warmup=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=ATTN_SCALE))
+    q, k, v, err = inputs["qkv views"]
+    qc, kc, vc, err_c = inputs["contiguous"]
+    # the main path copies nothing: the call allocates its output and no more
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = attn.multi_head_attention(q, k, v, ATTN_SCALE)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    check(extra <= out.numel() * out.element_size(),
+          f"K2 on the qkv views allocated {extra} bytes beyond its inputs")
+    print(f"kernel check: K2 {ATTN_SHAPE} bf16 qkv views: {extra / 2**20:.1f} MiB "
+          f"allocated by the call (its output), no copies", flush=True)
+    del out
     b, h, s, d = ATTN_SHAPE
     flops = 4.0 * b * h * s * s * d
     bound_ms, bound_by = bound(flops, 4.0 * b * h * s * d * 2, BF16_FLOPS)
-    print(f"kernel check: K2 {ATTN_SHAPE} bf16: kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms (frame by "
-          f"frame), scaled_dot_product_attention {library_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    contiguous_ms = cuda_ms(lambda: fa.flash_attention_cuda(qc, kc, vc, ATTN_SCALE))
+    ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v, ATTN_SCALE))  # the main path
+    plain_ms = cuda_ms(lambda: plain(q, k, v), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, scale=ATTN_SCALE))
+    print(f"kernel check: K2 {ATTN_SHAPE} bf16 contiguous: {contiguous_ms:.3f} ms "
+          f"({flops / contiguous_ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / contiguous_ms:.3f} of the bound)", flush=True)
+    print(f"kernel check: K2 {ATTN_SHAPE} bf16 through multi_head_attention on the "
+          f"qkv views: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the bound {bound_ms:.3f} ms ({bound_by})), "
+          f"scaled_dot_product_attention {library_ms:.3f} ms "
+          f"({flops / library_ms / 1e9:.1f} TFLOP/s, contiguous), plain "
+          f"{plain_ms:.3f} ms (frame by frame)", flush=True)
+    return {"max_abs_err": max(err, err_c), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -650,7 +693,7 @@ def token_cosines(a, b):
 
 def phase_vit(dev):
     """The ViT feature stage at full width through the port's entry points;
-    returns K2's launch count in it."""
+    returns K2's launch count in it and the features' seconds."""
     from dino_tracker_tpu_torch.config import PreprocessConfig, feature_grid_size
     from dino_tracker_tpu_torch.models import vit, vit_convert
     from dino_tracker_tpu_torch.ops import flash_attention as fa
@@ -753,7 +796,7 @@ def phase_vit(dev):
           f"cosine min {cmin:.6f}, median {cmed:.6f} (gate: median >= 0.995)",
           flush=True)
     check(cmed >= 0.995, f"bf16 features drift from f32: median cosine {cmed}")
-    return launches
+    return launches, t1 - t0
 
 
 def phase_vit_reference(dev):
@@ -1191,7 +1234,10 @@ def main():
     infer_launches, video, dino = phase_slice(bp, dev)
     train_launches = phase_train(bp, dev, video, dino)
     del video, dino
-    vit_launches = phase_vit(dev)
+    vit_launches, vit_s = phase_vit(dev)
+    print(f"vit: K2 {vit_launches} launches x {k2['ms']:.3f} ms (phase 3) = "
+          f"{vit_launches * k2['ms'] / 1e3:.3f} s, {vit_launches * k2['ms'] / 1e3 / vit_s:.3f} "
+          f"of the features' {vit_s:.3f} s", flush=True)
     raft_launches = phase_raft(dev)[0]
     phase_train_reference(dev)
     phase_reference(dev)

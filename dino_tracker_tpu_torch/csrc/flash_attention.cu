@@ -1,5 +1,5 @@
 // Flash attention forward (K2): out = softmax(q k^T * scale) v, non-causal,
-// over contiguous [BH, S, 64] tensors (batch and heads flattened), bf16 or f32.
+// head dim 64, bf16 (the main path) or f32.
 //
 // Replaces the TPU kernel dino_tracker_tpu/ops/flash_attention.py:27
 // _flash_fwd_kernel (launched by flash_attention :85, called from
@@ -9,37 +9,61 @@
 // feature stage's shape (4 frames x 16 heads, S = 8108 tokens, d = 64) does
 // 4 * BH * S^2 * d = 1.08 TFLOP of products (Q K^T and P V) against 0.27 GB
 // of q, k, v and out: ~4000 FLOP per byte, far above the card's ~295, so the
-// bound is 1.08 TFLOP / 989 TFLOP/s = 1.09 ms. The score matrix (S x S per
-// head, 263 MB in f32) must never reach device memory; the exponentials and
-// the running max/sum are the softmax's SIMT share of the work.
+// bound is 1.08 TFLOP / 989 TFLOP/s = 1.09 ms. At d = 64 the softmax's
+// exponentials come close: S^2 * BH = 4.2e9 ex2 on the SFUs (16 a clock per
+// SM) take ~1 ms by themselves, so the products and the softmax must overlap.
 //
-// Design (a first kernel: simple and right; see ROADMAP for the faster forms):
-// - One block per (query tile of 64 rows, batch-head); 4 warps, 16 query rows
-//   each. The TPU kernel carried its softmax state across sequential grid
-//   steps over key tiles; blocks run in parallel here, so each block loops
-//   over all key tiles itself and keeps the running max m, running sum l and
-//   the f32 accumulator in registers (online softmax).
-// - bf16: products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//   accumulation). Q's fragments stay in registers for the whole loop; each
-//   key tile (64 keys) of K, and of V transposed, is staged in shared memory
-//   with rows padded by 8 elements so fragment reads are free of bank
-//   conflicts. The score fragment of Q K^T is, register for register, the A
-//   fragment of P V, so probabilities never leave registers.
-// - Probabilities are rounded to bf16 (v's dtype) before P V, as the TPU
-//   kernel (flash_attention.py:68) and the plain version do; the running sum
-//   l adds the unrounded f32 values, as the TPU kernel does. One division by
-//   l at the end, with the l == 0 guard of flash_attention.py:77-78.
-// - S need not be a multiple of any tile: keys >= S get a score of -inf and
-//   query rows >= S are loaded as zeros and never stored, so there is no
-//   padding copy and no valid_len argument. The running max starts at -inf;
-//   where it is still -inf the exponentials use 0 in its place, so a fully
-//   masked tile gives p = 0 and never exp(-inf - -inf) = NaN.
-// - f32: a plain SIMT path, one thread per query row, key tiles of 32 in
-//   shared memory. It exists to hold the card against the CPU reference at
-//   f32 precision and is not on the bf16 main path.
+// bf16 design (Hopper only: wgmma, TMA, mbarriers, setmaxnreg; sm_90a):
+// - One block per (query tile of BM = 192 rows, batch-head), the query tiles
+//   of one head adjacent in blockIdx.x so that head's K/V stay in L2. Three
+//   consumer warpgroups (warps 0-11, 64 query rows each) and one producer
+//   warpgroup after them; the producer drops to 24 registers with
+//   setmaxnreg.dec, the consumers take 160 each with setmaxnreg.inc.
+// - The producer's first thread loads the block's Q once and then every key
+//   tile (BN = 128 keys) of K and of V through TMA into a ring of 4 stages,
+//   each tile with its own "full" mbarrier (expect_tx bytes); consumers free a
+//   stage through its "empty" mbarrier (one arrival per consumer warp). The
+//   tensor maps are 4-D (d, h, s, b) with the caller's own byte strides, so
+//   q, k and v are read where the qkv projection wrote them (no head copies);
+//   rows past S come in as zeros (TMA's out-of-bounds fill). Every tile row
+//   is 64 bf16 = 128 B, loaded with the 128-byte swizzle and read by wgmma
+//   through matching B128 descriptors.
+// - S = Q K^T: wgmma m64n128k16, both operands from shared memory, both
+//   K-major; four k-steps over d = 64 (the descriptor's start moves 32 B).
+// - O += P V: wgmma m64n64k16 with A = P from registers (the S accumulator's
+//   layout is, register for register, the A fragment layout, so P never
+//   leaves registers) and B = the V tile as TMA laid it ([keys][d]), read
+//   MN-major with the transpose bit: nothing transposes V.
+// - Overlap. Within a warpgroup there is none: each runs S, its softmax and
+//   P V in turn, and the three warpgroups' phases interleave on the SM only
+//   through the warp scheduler; each K/V tile fetched from L2 serves 192 query
+//   rows, and S, P and O are never all live at once, so the loop fits 160
+//   registers. The two explicit overlaps of FA3 were measured on the H100 and
+//   left out (PERF.md): issuing the next tile's Q K^T before this tile's
+//   softmax keeps S, P and O live together, which spills at 160 registers and
+//   so needs BM = 128 (two consumers at 240 registers), and that kernel was
+//   slower (2.76-2.89 ms against 2.07-2.16 ms at [4,16,8108,64]);
+//   named-barrier ping-pong of the warpgroups' issues was slower too.
+// - Numerics as the TPU kernel: scores and the running max in f32, in log2
+//   units (exp(x) = exp2(x log2 e)); probabilities rounded to bf16 before
+//   P V (flash_attention.py:68); the running sum l adds the unrounded f32
+//   values; one division by l at the end, with the l == 0 guard
+//   (:77-78). Keys >= S get a score of -inf (only the last key tile needs
+//   the mask); rows >= S are computed on zeros and never stored. The running
+//   max starts at -inf; where it is still -inf the exponentials use 0 in its
+//   place, so a fully masked row never gives exp(-inf - -inf) = NaN.
+// - The output is written from registers into the caller's [B, S, H, 64]
+//   buffer (strides passed in), so the ViT's transpose back is a view.
+// - f32: a plain SIMT path over contiguous [BH, S, 64], one thread per query
+//   row, key tiles of 32 in shared memory. It exists to hold the card against
+//   the CPU reference at f32 precision and is not on the bf16 main path.
 //
+// The tensor maps are encoded on the host per call with cuTensorMapEncodeTiled,
+// reached through the runtime's driver entry point (no -lcuda at build time).
 // Plain C interface, bound with ctypes (dino_tracker_tpu_torch/ops/flash_attention.py).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,19 +71,133 @@
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBQ = 64;       // query rows per block (4 warps x 16)
-constexpr int kBK = 64;       // keys per tile
-constexpr int kPad = kD + 8;  // padded shared-memory row, in bf16 elements
-constexpr int kThreads = 128;
+constexpr int kD = 64;          // head dim
+constexpr int kThreads = 128;   // one warpgroup; the f32 path's block
+constexpr int kBN = 128;        // keys per tile (bf16 path)
+constexpr int kQRows = 64;      // query rows per consumer warpgroup
+constexpr int kConsumers = 3;   // consumer warpgroups a block
+constexpr int kBM = kConsumers * kQRows;  // query rows a block
+constexpr int kStages = 4;      // K/V ring depth
+constexpr int kTileBytes = kBN * kD * 2;     // one K or V tile, 16 KB
+constexpr int kQBytes = kQRows * kD * 2;     // one warpgroup's Q tile, 8 KB
+constexpr int kSwizzleAtom = 1024;           // 8 rows x 128 B
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of the 4-D map at coordinates (d, h, s, b), completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int s, int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(s), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start, leading and stride
+// byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins an accumulator's registers in program order around the asynchronous
+// wgmma, so no read is hoisted above its wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64x128 f32) (+)= A (64x16, smem, K-major) * B (16x128, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64x64 f32) += A (64x16 bf16, registers) * B (16x64, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -67,163 +205,186 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ------------------------------------------------------- consumer building blocks
+//
+// Accumulator layout of a wgmma m64nN tile (warp w of the warpgroup, lane
+// g = lane / 4, t = lane % 4): register i holds row 16w + g + 8 * ((i >> 1) & 1),
+// column 8 * (i / 4) + 2t + (i & 1). The A fragment of a k16 step kk from
+// registers is the same layout over columns 16kk .. 16kk + 15.
+
+// S = Q K^T over the four 16-wide d steps of one key tile
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_tile, uint32_t k_tile) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_m64n128k16_ss(s, smem_desc(q_tile + 32 * kk, 16, kSwizzleAtom),
+                        smem_desc(k_tile + 32 * kk, 16, kSwizzleAtom), kk > 0);
+  wg_commit();
 }
 
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//     a3 (g+8, 2t+8..);
-//   B (16x8, k x n): b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g);
-//   C (16x8 f32): c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
-// For S = Q K^T, B[k][n] = K[n][k]: a B register is two neighbouring d values
-// of one key row. For O = P V, B[k][n] = V[k][n] = Vt[n][k]: two neighbouring
-// keys of one d row of the transposed tile.
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, int64_t s_len,
-                      float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBQ][kPad];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[kD][kBK + 8];
+// O += P V over the eight 16-key steps of one key tile; V is MN-major: 16 keys
+// are two 1024-byte swizzle atoms (stride byte offset) and the 64 d columns one
+// atom wide (the leading byte offset is never stepped; it is set alike)
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32],
+                                         uint32_t v_tile) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                       smem_desc(v_tile + 2 * kSwizzleAtom * kk, kSwizzleAtom, kSwizzleAtom));
+  wg_commit();
+}
 
-  const int64_t base = (int64_t)blockIdx.y * s_len * kD;
-  const int64_t q0 = (int64_t)blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+// Online softmax of one key tile's scores, in place: masks keys >= S, updates
+// the running max m (log2 units) and this thread's share of the running sum
+// l, returns the rescale factor of the old O and sum in alpha, and leaves the
+// unrounded probabilities exp2(s * scale_log2 - m) in s.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int s_len, int t,
+                                             float scale_log2) {
+  if (k0 + kBN > s_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= s_len) s[i] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float neg_mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);  // scale > 0: max commutes
+    const float mu = m_new == -INFINITY ? 0.f : m_new;    // no -inf - -inf
+    alpha[r] = ex2(m[r] - mu);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+    neg_mu[r] = -mu;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], scale_log2, neg_mu[r]));
+    l[r] += s[i];
+  }
+}
 
-  // the block's query tile, 16 bytes (8 values) a thread per step
-  for (int c = tid; c < kBQ * kD / 8; c += kThreads) {
-    const int r = c / 8, col = (c % 8) * 8;
-    uint4 val = zero;
-    if (q0 + r < s_len)
-      val = *reinterpret_cast<const uint4*>(q + base + (q0 + r) * kD + col);
-    *reinterpret_cast<uint4*>(&q_s[r][col]) = val;
+// the probabilities rounded to bf16 pairs: the A fragments of P V
+__device__ __forceinline__ void to_bf16(const float (&s)[64], uint32_t (&p)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// ------------------------------------------------------------------- the kernel
+
+// Q tiles, K and V rings, barriers, alignment slack
+constexpr int kSmemBytes =
+    kConsumers * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages) + kSwizzleAtom;
+
+__global__ void __launch_bounds__((kConsumers + 1) * kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ o, int64_t o_sb, int64_t o_ss,
+                       int64_t o_sh, int heads, int s_len, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on a 1024-byte swizzle atom
+  const uint32_t q_s = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~(uint32_t)(kSwizzleAtom - 1);
+  const uint32_t k_s = q_s + kConsumers * kQBytes;
+  const uint32_t v_s = k_s + kStages * kTileBytes;
+  const uint32_t q_full = v_s + kStages * kTileBytes;
+  const uint32_t k_full = q_full + 8;                 // kStages barriers each
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int tid = threadIdx.x, wg = tid / kThreads;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * kBM;
+  const int nk = (s_len + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumers * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[4][4];             // A fragments of the 4 16-wide d chunks
+  if (wg == kConsumers) {  // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * kThreads) {
+      mbar_expect_tx(q_full, kConsumers * kQBytes);
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    qa[kc][0] = ld32(&q_s[r0][kc * 16 + 2 * t]);
-    qa[kc][1] = ld32(&q_s[r0 + 8][kc * 16 + 2 * t]);
-    qa[kc][2] = ld32(&q_s[r0][kc * 16 + 8 + 2 * t]);
-    qa[kc][3] = ld32(&q_s[r0 + 8][kc * 16 + 8 + 2 * t]);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units), rows r0, r0+8
-  float l[2] = {0.f, 0.f};              // this thread's share of the running sum
-  float acc[8][4];                      // O fragments of the 8 8-wide d tiles
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  for (int64_t k0 = 0; k0 < s_len; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < kBK * kD / 8; c += kThreads) {
-      const int r = c / 8, col = (c % 8) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < s_len) {
-        kv = *reinterpret_cast<const uint4*>(k + base + (k0 + r) * kD + col);
-        vv = *reinterpret_cast<const uint4*>(v + base + (k0 + r) * kD + col);
-      }
-      *reinterpret_cast<uint4*>(&k_s[r][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt_s[col + i][r] = ve[i];
-    }
-    __syncthreads();
-
-    // scores of 16 rows x 64 keys: 8 n-tiles of 8 keys
-    float sc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const __nv_bfloat16* kr = &k_s[n * 8 + g][kc * 16 + 2 * t];
-        mma_bf16_16816(sc[n], qa[kc], ld32(kr), ld32(kr + 8));
+      for (int c = 0; c < kConsumers; ++c)
+        tma_load(q_s + c * kQBytes, &q_map, q_full, h, q0 + c * kQRows, b);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kStages;
+        mbar_wait(empty + 8 * st, ((j / kStages) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(k_full + 8 * st, kTileBytes);
+        tma_load(k_s + st * kTileBytes, &k_map, k_full + 8 * st, h, j * kBN, b);
+        mbar_expect_tx(v_full + 8 * st, kTileBytes);
+        tma_load(v_s + st * kTileBytes, &v_map, v_full + 8 * st, h, j * kBN, b);
       }
     }
+  } else {  // consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+    const int warp = (tid % kThreads) / 32, lane = tid % 32, t = lane & 3;
+    const uint32_t q_tile = q_s + wg * kQBytes;
 
-    // scale into log2 units, mask keys >= S, row max over the quad
-    float mx[2] = {m[0], m[1]};
+    float o_acc[32], s[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t p[32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    // one key tile at a time: S, then its softmax, then P V
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kStages;
+      const uint32_t ph = (j / kStages) & 1;
+      mbar_wait(k_full + 8 * st, ph);
+      issue_qk(s, q_tile, k_s + st * kTileBytes);
+      wg_wait_all();
+      reg_fence(s);
+      softmax_tile(s, m, l, alpha, j * kBN, s_len, t, scale_log2);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t key = k0 + n * 8 + 2 * t + (e & 1);
-        sc[n][e] = key < s_len ? sc[n][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
-      }
-    }
-    float mu[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mu[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // no -inf - -inf
-      alpha[i] = exp2f(m[i] - mu[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[n][e] = exp2f(sc[n][e] - mu[e >> 1]);
-        l[e >> 1] += sc[n][e];
-      }
-    }
-#pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
+      for (int i = 0; i < 32; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+      to_bf16(s, p);
+      mbar_wait(v_full + 8 * st, ph);
+      issue_pv(o_acc, p, v_s + st * kTileBytes);
+      wg_wait_all();
+      reg_fence(o_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
     }
 
-    // O += P V over 4 chunks of 16 keys; P's A fragment is two score tiles
+    float inv[2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        const __nv_bfloat16* vr = &vt_s[dn * 8 + g][kk * 16 + 2 * t];
-        mma_bf16_16816(acc[dn], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int r = 0; r < 2; ++r) {
+      float li = l[r];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      inv[r] = li == 0.f ? 1.f : 1.f / li;
     }
-  }
-
-  float inv[2];
+    const int row0 = q0 + wg * kQRows + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    inv[i] = li == 0.f ? 1.f : 1.f / li;
-  }
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= s_len) continue;
+      __nv_bfloat16* orow = o + b * o_sb + row * o_ss + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row = q0 + r0 + 8 * i;
-    if (row >= s_len) continue;
-    __nv_bfloat16* orow = o + base + row * kD;
-#pragma unroll
-    for (int dn = 0; dn < 8; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][2 * i] * inv[i], acc[dn][2 * i + 1] * inv[i]);
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o_acc[4 * j + 2 * r] * inv[r], o_acc[4 * j + 2 * r + 1] * inv[r]);
+    }
   }
 }
+
+// ------------------------------------------------------------------ f32 path
 
 constexpr int kFK = 32;  // keys per tile of the f32 path
 
@@ -292,33 +453,95 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kD; ++i) o[base + row * kD + i] = acc[i] * inv;
 }
 
+// ------------------------------------------------------------------ host side
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// a 4-D map (d, h, s, b) of one operand; byte_strides = (h, s, b); boxes of
+// box_rows x 64 with the 128-byte swizzle, zeros out of bounds
+bool encode_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t heads, int64_t s_len,
+                const int64_t* byte_strides, uint32_t box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads, (cuuint64_t)s_len,
+                              (cuuint64_t)batch};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    if (byte_strides[i] <= 0 || byte_strides[i] % 16 || byte_strides[i] >= (1ll << 40))
+      return false;
+    strides[i] = (cuuint64_t)byte_strides[i];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are contiguous [bh, s_len, d]
-// with d = 64 and 16-byte aligned; 1 <= bh <= 65535. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not take.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int64_t bh, int64_t s_len, int64_t d,
-                                   float sm_scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d != kD || bh < 1 || bh > 65535 || s_len < 1 || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(o))
+// bf16 [B, H, S, 64] q, k, v as strided views: in_strides holds, for q, k and
+// v in turn, the byte strides of the h, s and b axes (each a positive multiple
+// of 16; the d axis is contiguous), and each base pointer is 16-byte aligned.
+// o is written at o + b * o_strides[0] + s * o_strides[1] + h * o_strides[2]
+// (elements) + d. 1 <= batch * heads <= 65535, 1 <= s_len < 2^31.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it does
+// not take.
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                        int64_t batch, int64_t heads, int64_t s_len, int64_t d,
+                                        const int64_t* in_strides, const int64_t* o_strides,
+                                        float sm_scale, void* stream) {
+  if (d != kD || batch < 1 || heads < 1 || batch * heads > 65535 || s_len < 1 ||
+      s_len >= (1ll << 31) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const dim3 grid((unsigned)((s_len + kBQ - 1) / kBQ), (unsigned)bh);
-    flash_fwd_bf16_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), s_len,
-        sm_scale * 1.4426950408889634f);  // log2(e): exp(x) = exp2(x log2 e)
-  } else if (dtype == 0) {
-    const dim3 grid((unsigned)((s_len + kThreads - 1) / kThreads), (unsigned)bh);
-    flash_fwd_f32_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), s_len, sm_scale);
-  } else {
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, q, batch, heads, s_len, in_strides, kQRows) ||
+      !encode_map(&km, k, batch, heads, s_len, in_strides + 3, kBN) ||
+      !encode_map(&vm, v, batch, heads, s_len, in_strides + 6, kBN))
     return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s_len + kBM - 1) / kBM), (unsigned)(batch * heads));
+  flash_fwd_wgmma_kernel<<<grid, (kConsumers + 1) * kThreads, kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), o_strides[0], o_strides[1], o_strides[2],
+      (int)heads, (int)s_len, sm_scale * 1.4426950408889634f);  // scale in log2 units
+  return (int)cudaGetLastError();
+}
+
+// f32 q, k, v, o contiguous [bh, s_len, d] with d = 64 and 16-byte aligned;
+// 1 <= bh <= 65535. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                       int64_t bh, int64_t s_len, int64_t d, float sm_scale,
+                                       void* stream) {
+  if (d != kD || bh < 1 || bh > 65535 || s_len < 1 || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((s_len + kThreads - 1) / kThreads), (unsigned)bh);
+  flash_fwd_f32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, sm_scale);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,13 @@ feature extractor. The ``.cu`` file's note says what bounds it on the card
 and what its design does about that. ``ops/attention.py`` holds the plain
 PyTorch version and the device dispatch.
 
+bf16 q, k, v are read through TMA tensor maps built from each tensor's own
+strides, so the permuted views of the ViT's qkv projection reach the kernel
+as they are; ``tma_layout`` holds that arithmetic (and refuses a layout the
+maps cannot express: the wrapper never copies). The bf16 output is a
+[B, S, H, 64] buffer returned as its [B, H, S, 64] view. f32 inputs take the
+kernel's SIMT path over contiguous tensors.
+
 The library is built with nvcc at first use (``ops/_build.py``), never at
 import. ``flash_attention_cuda.launches`` counts the launches.
 """
@@ -14,11 +21,13 @@ import. ``flash_attention_cuda.launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 HEAD_DIMS = (64,)  # the head dims the kernel takes (every DINOv2 preset: 64)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_STRIDE_BYTES = 1 << 40  # a tensor map's stride limit
 
 _lib = None
 
@@ -32,29 +41,62 @@ def load_library() -> tuple[ctypes.CDLL, float]:
     from . import _build
     path, seconds = _build.build("flash_attention")
     lib = ctypes.CDLL(path)
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [
+    lib.flash_attention_fwd_bf16.restype = ctypes.c_int
+    lib.flash_attention_fwd_bf16.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_fwd_f32.restype = ctypes.c_int
+    lib.flash_attention_fwd_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     _lib = lib
     return lib, seconds
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+class TmaLayout(NamedTuple):
+    """One operand's 4-D tensor map: ``dims`` (d, H, S, B) innermost first,
+    ``byte_strides`` of the H, S and B axes, and the base ``address``."""
+    dims: tuple[int, int, int, int]
+    byte_strides: tuple[int, int, int]
+    address: int
+
+
+def tma_layout(shape, strides, itemsize: int, address: int) -> TmaLayout:
+    """The tensor-map arguments of a [B, H, S, d] view with element
+    ``strides`` at byte ``address``. The d axis must be contiguous, every
+    other stride a positive multiple of 16 bytes below 2^40 and the address
+    16-byte aligned; anything else raises ValueError. An axis of size 1 is
+    never stepped, so its stride is replaced by d·itemsize."""
+    b, h, s, d = shape
+    if strides[3] != 1:
+        raise ValueError(f"flash_attention_cuda: the head dim must be contiguous "
+                         f"(stride 1), got strides {tuple(strides)}")
+    if address % 16:
+        raise ValueError(f"flash_attention_cuda: a TMA tensor map needs a "
+                         f"16-byte aligned base, got address {address:#x}")
+    byte_strides = []
+    for size, stride in ((h, strides[1]), (s, strides[2]), (b, strides[0])):
+        nbytes = stride * itemsize if size > 1 else d * itemsize
+        if nbytes <= 0 or nbytes % 16 or nbytes >= _MAX_STRIDE_BYTES:
+            raise ValueError(
+                f"flash_attention_cuda: a TMA tensor map cannot express the "
+                f"strides {tuple(strides)} of shape {tuple(shape)} (each must be "
+                f"a positive multiple of 16 bytes below 2^40)")
+        byte_strides.append(nbytes)
+    return TmaLayout((d, h, s, b), tuple(byte_strides), address)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda needs CUDA tensors, {name} "
                              f"is on {t.device}")
-        if t.dtype not in _DTYPE_CODE:
+        if t.dtype not in _DTYPES:
             raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
                             f"{name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_cuda needs contiguous tensors, "
-                             f"{name} is not")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda needs 16-byte aligned "
-                             f"tensors, {name} is not")
     if not (q.shape == k.shape == v.shape) or q.dim() < 2:
         raise ValueError(f"q, k, v must share one [..., S, d] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -67,23 +109,58 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if not 1 <= bh <= 65535 or q.shape[-2] < 1:
         raise ValueError(f"flash_attention_cuda takes 1..65535 batch·heads and "
                          f"S >= 1, got shape {tuple(q.shape)}")
-    return bh
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sm_scale: float) -> torch.Tensor:
-    """Launch K2 on contiguous CUDA tensors [..., S, d] (every leading axis is
-    a batch axis, d = 64), bf16 or f32. Any S: keys and rows past S are
-    handled by bounds inside the kernel."""
-    bh = _check(q, k, v)
+    """Launch K2 on CUDA tensors, d = 64. bf16: [B, H, S, 64] views with any
+    strides ``tma_layout`` takes; returns the [B, H, S, 64] view of a
+    [B, S, H, 64] buffer. f32: contiguous [..., S, 64]; returns a contiguous
+    tensor. Any S: keys and rows past S are masked inside the kernel."""
+    _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        return _launch_bf16(q, k, v, sm_scale)
+    return _launch_f32(q, k, v, sm_scale)
+
+
+def _launch_bf16(q, k, v, sm_scale):
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention_cuda takes bf16 [B, H, S, d], got "
+                         f"shape {tuple(q.shape)}")
+    maps = [tma_layout(t.shape, t.stride(), t.element_size(), t.data_ptr())
+            for t in (q, k, v)]
+    b, h, s, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    in_strides = (ctypes.c_int64 * 9)(*(x for m in maps for x in m.byte_strides))
+    o_strides = (ctypes.c_int64 * 3)(out.stride(0), out.stride(1), out.stride(2))
+    lib, _ = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       out.data_ptr(), b, h, s, d, in_strides,
+                                       o_strides, float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: CUDA error {err}")
+    flash_attention_cuda.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+def _launch_f32(q, k, v, sm_scale):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda needs contiguous f32 tensors, "
+                             f"{name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda needs 16-byte aligned "
+                             f"tensors, {name} is not")
     lib, _ = load_library()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), bh, q.shape[-2], q.shape[-1],
-                                  float(sm_scale), _DTYPE_CODE[q.dtype], stream)
+    bh = q.numel() // (q.shape[-2] * q.shape[-1])
+    err = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      out.data_ptr(), bh, q.shape[-2], q.shape[-1],
+                                      float(sm_scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention_fwd_f32 launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1
     return out
 

@@ -13,10 +13,19 @@ the output's range), because the kernel rounds the unnormalised
 probabilities exp(s - m) to bf16 and divides once at the end, while the
 plain version rounds the normalised ones; both round the output to bf16.
 A normalisation off by 2% or a skipped key tile moves the output by more at
-S = 8108, and keys past S left unmasked do at S = 65 and 100. Then a small
-f32 ViT
+S = 8108, and keys past S left unmasked do at S = 65 and 100. The bf16
+kernel also runs on the permuted q/k/v views of one qkv buffer (the ViT's
+layout, read through TMA tensor maps), at S across the 128-key tile and
+the 128/192-row block edges, with both consumer counts, and refuses a view
+its tensor maps cannot express. Then a small f32 ViT
 (head dim 64) through ``extract_feature_video`` and ``compute_fg_masks`` on
 the card against the CPU: features within 1e-4 of their max, masks equal.
+
+On the CPU as well: ``tma_layout`` (the tensor-map arithmetic of the bf16
+wrapper) turns the permuted views of a qkv buffer into numbers that
+``torch.as_strided`` turns back into exactly those views, and refuses the
+layouts TMA cannot take; ``multi_head_attention`` gives the same result on
+those views as on contiguous copies.
 
 The JAX side is imported inside a fixture that pins it to the CPU, so this
 file also runs on a GPU machine without JAX:
@@ -148,6 +157,62 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     assert pflash.flash_attention_cuda.launches == before
 
 
+def qkv_views(b, s, h, dtype=torch.float32, device="cpu", seed=0):
+    """One [B, S, 3·H·64] qkv buffer and its q, k, v views [B, H, S, 64], as
+    models/vit.py makes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * 64), generator=g, device=device).to(dtype)
+    return qkv, qkv.view(b, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+
+
+@pytest.mark.parametrize("b,s,h", [(4, 811, 16), (1, 100, 2), (2, 1, 3), (1, 65, 1)])
+def test_tma_layout_round_trips_qkv_views(b, s, h):
+    qkv, views = qkv_views(b, s, h, torch.bfloat16)
+    flat = qkv.flatten()
+    for view in views:
+        lay = pflash.tma_layout(view.shape, view.stride(), view.element_size(),
+                                view.data_ptr())
+        d_, h_, s_, b_ = lay.dims
+        assert (b_, h_, s_, d_) == tuple(view.shape)
+        sh, ss, sb = (n // 2 for n in lay.byte_strides)
+        assert all(n % 16 == 0 for n in lay.byte_strides)
+        back = torch.as_strided(flat, (b_, h_, s_, d_), (sb, sh, ss, 1),
+                                (lay.address - qkv.data_ptr()) // 2)
+        assert back.data_ptr() == view.data_ptr()
+        assert torch.equal(back, view)
+    # k and v start one and two head blocks (H·64 values) into each row
+    offsets = [pflash.tma_layout(v.shape, v.stride(), 2, v.data_ptr()).address
+               - qkv.data_ptr() for v in views]
+    assert offsets == [0, h * 128, 2 * h * 128]
+
+
+@pytest.mark.parametrize("case", ["d_not_contiguous", "stride_not_16B", "unaligned_base"])
+def test_tma_layout_rejects_what_tma_cannot_express(case):
+    buf = torch.zeros(2 * 16 * 65 * 64 + 8, dtype=torch.bfloat16)
+    if case == "d_not_contiguous":
+        t = buf[:2 * 16 * 64 * 64].view(2, 16, 64, 64).transpose(2, 3)
+        match = "contiguous"
+    elif case == "stride_not_16B":  # rows of 65 values: 130 bytes apart
+        t = buf[:2 * 16 * 65 * 64].view(2, 16, 64, 65)[..., :64]
+        match = "multiple of 16"
+    else:
+        t = buf[1:1 + 2 * 16 * 64 * 64].view(2, 16, 64, 64)
+        match = "aligned"
+    with pytest.raises(ValueError, match=match):
+        pflash.tma_layout(t.shape, t.stride(), t.element_size(), t.data_ptr())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_head_attention_on_qkv_views_matches_contiguous(dtype):
+    _, (q, k, v) = qkv_views(2, 37, 3, dtype, seed=5)
+    assert not q.is_contiguous()
+    out = pattn.multi_head_attention(q, k, v, 0.125)
+    ref = pattn.multi_head_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), 0.125)
+    assert out.shape == ref.shape == (2, 3, 37, 64) and out.dtype == dtype
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
 def max_err(out, ref):
     return (out.float() - ref.float()).abs().max().item()
 
@@ -185,6 +250,42 @@ def test_kernel_rejects_bad_inputs(cuda):
         pflash.flash_attention_cuda(t, t, t, 0.1)
     with pytest.raises(ValueError, match="shape"):
         pflash.flash_attention_cuda(q, q[:, :, :8].contiguous(), q, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", [(1, 8108, 16)] + [
+    (1, s, 2) for s in (1, 64, 65, 100, 127, 128, 129, 1000)] + [(2, 577, 3)])
+def test_kernel_on_qkv_views(cuda, b, s, h):
+    """bf16 K2 on the permuted views of one qkv buffer, as the ViT passes
+    them: within 2^-6·max|out| of the plain version, nothing copied, the
+    output a [B, H, S, 64] view of a [B, S, H, 64] buffer."""
+    _, (q, k, v) = qkv_views(b, s, h, torch.bfloat16, cuda, seed=s)
+    before = pflash.flash_attention_cuda.launches
+    out = pattn.multi_head_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert pflash.flash_attention_cuda.launches == before + 1
+    assert out.shape == (b, h, s, 64) and out.dtype == torch.bfloat16
+    assert out.stride() == (s * h * 64, 64, h * 64, 1)
+    assert out.transpose(1, 2).reshape(b, s, h * 64).data_ptr() == out.data_ptr()
+    ref = pattn.attention_reference(q, k, v, 0.125)
+    assert max_err(out, ref) <= BF16_TOL * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_unaligned_bf16_views(cuda):
+    """A bf16 layout the tensor maps cannot express raises, with no copy and
+    no launch."""
+    buf = torch.zeros(2 * 16 * 65 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    unaligned = buf[1:1 + 2 * 16 * 64 * 64].view(2, 16, 64, 64)
+    odd_rows = buf[:2 * 16 * 65 * 64].view(2, 16, 64, 65)[..., :64]
+    ok = torch.zeros(2, 16, 64, 64, dtype=torch.bfloat16, device=cuda)
+    before = pflash.flash_attention_cuda.launches
+    for bad, match in ((unaligned, "aligned"), (odd_rows, "multiple of 16")):
+        with pytest.raises(ValueError, match=match):
+            pattn.multi_head_attention(bad, ok, ok, 0.125)
+        with pytest.raises(ValueError, match=match):
+            pattn.multi_head_attention(ok, ok, bad, 0.125)
+    assert pflash.flash_attention_cuda.launches == before
 
 
 @pytest.mark.cuda
