@@ -9,21 +9,23 @@ Phases, one line or more each (any failure raises and exits non-zero):
   2. build: compiles kernels K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
      and K1-bwd blurpool_up_nhwc), K2 (csrc/flash_attention.cu) and K3
      (csrc/corr_lookup.cu) with nvcc into build/kernels/, one nvcc per
-     source, all started together.
+     source, all started together; prints each kernel's registers, shared
+     memory and spills as ptxas reports them.
   3. kernel check: K1-fwd against its plain PyTorch version at the three
      DeltaDINO blurpool shapes of a 16-frame refine chunk, and K1-bwd against
      autograd of the plain version at the three shapes of an 8-frame training
-     step, bf16 and f32; K2 against attention_reference at the ViT stage's
-     shape [4 frames, 16 heads, S=8108, 64] in bf16 on contiguous inputs and
-     on the ViT's layout (permuted views of one qkv buffer, which it reads
-     without copies), at one frame in f32 and at ragged S = 100 and 1000 in
-     both, timed with 3 and 2 consumer warpgroups, with TFLOP/s and the
-     fraction of its bound; K3 against corr_lookup_reference
-     on a pyramid of random 256-channel f32 fmaps for a decode batch of 8
+     step, bf16 and f32, each shape's time beside its own bound; K2 against
+     attention_reference at the ViT stage's shape [4 frames, 16 heads,
+     S=8108, 64] in bf16 on contiguous inputs and on the ViT's layout
+     (permuted views of one qkv buffer, which it reads without copies), at
+     one frame in f32 and at ragged S = 100 and 1000 in both, timed on both
+     bf16 layouts, with TFLOP/s and the fraction of its bound; K3 against
+     corr_lookup_reference on a pyramid of random 256-channel f32 fmaps for a decode batch of 8
      pairs at 60×107 with coordinates inside, at the edge and far outside
-     the maps; with the error bounds and kernel vs plain (and, for K2,
+     the maps, timed beside its byte bound and the floor that 32-byte sectors
+     put under it; with the error bounds and kernel vs plain (and, for K2,
      F.scaled_dot_product_attention, for K3 four F.grid_sample calls) times
-     from CUDA events.
+     from CUDA events, and the share of the bound each kernel reaches.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
@@ -272,9 +274,11 @@ def phase_kernel_bwd_check(bp, dev):
                   f"K1-bwd {shape} {dtype}: max abs err {err} > bound {bound}")
             k = cuda_ms(lambda: bp.blurpool_cuda_bwd(gy, h, w))
             p = cuda_ms(lambda: torch.autograd.grad(y, x, gy, retain_graph=True))
+            least = blurpool_bound([shape], gy.element_size())["bound_ms"]
             print(f"kernel check: K1-bwd {shape} {str(dtype)[6:]}: max_abs_err "
-                  f"{err:.3g} (bound {bound:.3g}), kernel {k:.3f} ms, "
-                  f"plain {p:.3f} ms", flush=True)
+                  f"{err:.3g} (bound {bound:.3g}), kernel {k:.4f} ms, its bound "
+                  f"{least:.4f} ms (bytes; {least / k:.3f} of it), plain {p:.3f} ms",
+                  flush=True)
             if dtype == torch.bfloat16:  # the training step's dtype
                 worst = max(worst, err)
                 ms += k
@@ -831,27 +835,38 @@ def corr_lookup_bound(pyramid, coords, radius=4):
     """K3's least time on these inputs: the in-map cells of each pixel's
     10×10 window at every level read once (4 B each), its coordinates (8 B)
     read and its 324 outputs (4 B each) written once; 7 f32 FLOP an output.
-    Returns (bound numbers, the all-inside bytes)."""
+    Returns (bound numbers, the all-inside bytes, the sector floor's bytes:
+    the same with each in-map window row read as the whole 32-byte sectors
+    it spans, which is what device memory moves)."""
     b, _, h, w = coords.shape
     n = b * h * w
     side = 2 * radius + 2
-    cells = 0.0
+    cells = sectors = 0.0
+    pixel = torch.arange(n, device=coords.device, dtype=torch.int64)[:, None]
     for lvl, vol in enumerate(pyramid):
-        axes = []
+        spans = []  # [lo, hi) of the in-map window, x then y
         for c, size in ((coords[:, 0], vol.shape[2]), (coords[:, 1], vol.shape[1])):
+            c = c.reshape(-1)
             if size == 1:  # every tap reads the one cell
-                axes.append(torch.ones_like(c))
+                spans.append((torch.zeros_like(c), torch.ones_like(c)))
                 continue
             c = torch.clamp(c / 2 ** lvl, -(radius + 1.0), size + radius)
             lo = torch.floor(c) - radius
-            axes.append(torch.clamp(torch.minimum(lo + side, torch.tensor(float(size)))
-                                    - torch.clamp(lo, min=0), min=0))
-        cells += float((axes[0] * axes[1]).sum())
+            spans.append((torch.clamp(lo, min=0),
+                          torch.clamp(torch.clamp(lo + side, max=float(size)), min=0)))
+        (x0, x1), (y0, y1) = [(a.long(), torch.maximum(a, z).long()) for a, z in spans]
+        cells += float(((x1 - x0) * (y1 - y0)).sum())
+        hl, wl = vol.shape[1:]
+        rows = y0[:, None] + torch.arange(side, device=coords.device)
+        live = (rows < y1[:, None]) & (x1 > x0)[:, None]
+        start = ((pixel * hl + rows) * wl + x0[:, None]) * 4
+        end = ((pixel * hl + rows) * wl + x1[:, None]) * 4
+        sectors += float(torch.where(live, (end - 1) // 32 - start // 32 + 1, 0).sum())
     n_out = len(pyramid) * (2 * radius + 1) ** 2
-    nbytes = 4 * cells + 8 * n + 4 * n_out * n
-    ms, by = bound(7.0 * n_out * n, nbytes, F32_FLOPS)
-    return {"bound_ms": ms, "bound_by": by}, n * (4 * len(pyramid) * side * side
-                                                  + 8 + 4 * n_out)
+    other = 8 * n + 4 * n_out * n
+    ms, by = bound(7.0 * n_out * n, 4 * cells + other, F32_FLOPS)
+    return ({"bound_ms": ms, "bound_by": by},
+            n * (4 * len(pyramid) * side * side + 8 + 4 * n_out), 32 * sectors + other)
 
 
 def corr_lookup_grid_sample(pyramid, coords, radius=4):
@@ -917,14 +932,17 @@ def phase_corr_lookup_check(dev):
     ms = cuda_ms(lambda: wg.corr_lookup_cuda(pyramid, coords))
     plain_ms = cuda_ms(lambda: wg.corr_lookup_reference(pyramid, coords), iters=3, warmup=1)
     library_ms = cuda_ms(lambda: corr_lookup_grid_sample(pyramid, coords))
-    numbers, inside_bytes = corr_lookup_bound(pyramid, coords)
+    numbers, inside_bytes, sector_bytes = corr_lookup_bound(pyramid, coords)
+    least = numbers["bound_ms"]
+    floor_ms = sector_bytes / HBM_BYTES * 1e3
     print(f"kernel check: K3 {LOOKUP_SHAPE[0]} pairs x {LOOKUP_SHAPE[1]}x"
           f"{LOOKUP_SHAPE[2]}, levels {[tuple(v.shape[1:]) for v in pyramid]} f32: "
           f"max_abs_err {err:.3g} (bound {LOOKUP_TOL * scale:.3g}; zero outputs "
           f"{zero_share:.3f}), 4x grid_sample max diff {lib_err:.3g}; kernel {ms:.4f} "
           f"ms, plain {plain_ms:.3f} ms, 4x grid_sample {library_ms:.3f} ms, bound "
-          f"{numbers['bound_ms']:.4f} ms ({numbers['bound_by']}; all windows inside: "
-          f"{inside_bytes / HBM_BYTES * 1e3:.4f} ms)", flush=True)
+          f"{least:.4f} ms ({numbers['bound_by']}; {least / ms:.3f} of it; all "
+          f"windows inside: {inside_bytes / HBM_BYTES * 1e3:.4f} ms), sector floor "
+          f"{floor_ms:.4f} ms ({floor_ms / ms:.3f} of the kernel's time)", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **numbers,
             "library_ms": library_ms}
 
@@ -1174,13 +1192,18 @@ def phase_raft_reference(dev):
 
 
 def build_kernels(sources):
-    """nvcc for each (name, module) at once; returns each source's seconds."""
+    """nvcc for each (name, module) at once; prints each source's seconds and
+    what ptxas reports for its kernels."""
+    from dino_tracker_tpu_torch.ops import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         jobs = {name: pool.submit(mod.load_library) for name, mod in sources}
         nvcc_s = {name: job.result()[1] for name, job in jobs.items()}
     print("build: " + ", ".join(f"csrc/{name} nvcc {s:.2f} s" for name, s in nvcc_s.items())
           + f", all loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in nvcc_s:
+        for kernel, usage in _build.ptxas_report(name.removesuffix(".cu")):
+            print(f"build: ptxas csrc/{name} {kernel}: {usage}", flush=True)
 
 
 def main():

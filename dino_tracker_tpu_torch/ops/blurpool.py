@@ -9,7 +9,8 @@ autograd backward, replaces ``_up_kernel`` (``ops/blurpool.py:67``), the
 transpose stencil. Both are bound by device-memory bytes (16 FMAs per
 output, ~1.25 bytes moved per byte of the larger tensor), so the CUDA forms
 are one fused 2-D pass each with C-minor coalesced accesses and no
-transposes; see the source notes in the ``.cu`` file.
+transposes; K1-bwd runs a thread per 2×2 output quad. See the source notes
+in the ``.cu`` file.
 
 ``blurpool_reference`` is the plain PyTorch version: reflect pad (1, 2) and a
 depthwise conv with the outer-product filter, computed in f32 and cast to the
@@ -101,6 +102,12 @@ def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if (ho, wo) != ((h + 1) // 2, (w + 1) // 2):
         raise ValueError(f"cotangent {tuple(g_nhwc.shape)} is not the output "
                          f"shape of an {h}×{w} input")
+    if n > 65535 or ho > 65535:  # the grid's z and y limits
+        raise ValueError(f"blurpool_cuda_bwd takes at most 65535 frames and "
+                         f"output rows, got N={n}, ceil(H/2)={ho}")
+    if h * w * c >= 2 ** 31:  # the kernel's int32 offsets within a frame
+        raise ValueError(f"blurpool_cuda_bwd: a frame of 2^31 values or more "
+                         f"({h}×{w}×{c})")
     lib, _ = load_library()
     gx = torch.empty((n, h, w, c), dtype=g_nhwc.dtype, device=g_nhwc.device)
     stream = torch.cuda.current_stream(g_nhwc.device).cuda_stream

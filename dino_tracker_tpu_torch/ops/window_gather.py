@@ -144,8 +144,9 @@ def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor):
         if v.dim() != 3 or v.shape[0] != b * h * w or min(v.shape[1:]) < 1:
             raise ValueError(f"level {i} must be (B·h·w = {b * h * w}, h_l ≥ 1, "
                              f"w_l ≥ 1), got {tuple(v.shape)}")
-        if v.shape[1] * v.shape[2] >= 2 ** 31 or h * w >= 2 ** 31:
-            raise ValueError("corr_lookup_cuda: a map of 2^31 values or more")
+        if v.shape[1] * v.shape[2] >= 2 ** 31 or b * h * w >= 2 ** 31:
+            raise ValueError("corr_lookup_cuda: a map, or B·h·w source pixels, "
+                             "of 2^31 or more")
 
 
 def corr_lookup_cuda(pyramid: Sequence[torch.Tensor],

@@ -3,11 +3,14 @@ the f32 conv gradients of DeltaDINO's CUDA path.
 
 On the CPU: the plain PyTorch version and its autograd held against the JAX
 package's Pallas kernel (interpret mode, as tests/test_blurpool_pallas.py
-runs it) and its banded-matmul form, forward and VJP. On the card (``cuda``
-marker, skipped without one): the CUDA kernels held against the plain
-version and its autograd, at the shapes DeltaDINO gives them in a refine
-chunk and a training step and at small odd/even shapes; and f32 conv
-gradients on the card against the CPU (TF32 must stay off in the backward).
+runs it) and its banded-matmul form, forward and VJP; and a numpy mirror of
+K1-bwd's quad weights (interior constants and edge tables) against the
+autograd VJP of the plain version, for every axis length 3..40. On the card
+(``cuda`` marker, skipped without one): the CUDA kernels held against the
+plain version and its autograd, at the shapes DeltaDINO gives them in a
+refine chunk and a training step, at small odd/even shapes and where K1-bwd's
+vector path meets the quad edges; and f32 conv gradients on the card against
+the CPU (TF32 must stay off in the backward).
 
 The JAX side is imported inside a fixture, so this file also runs on a GPU
 machine without JAX: ``python -m pytest tests/test_torch_blurpool.py
@@ -25,6 +28,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dino_tracker_tpu_torch.ops import blurpool as bp
 
@@ -204,6 +208,120 @@ def test_kernel_backward_matches_reference(cuda, shape, dtype):
     atol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())
     err = (gx.float() - ref).abs().max().item()  # on the card: gx is large
     assert err <= atol, (err, atol)
+
+
+def reflect(i: int, n: int) -> int:
+    return -i if i < 0 else (2 * n - 2 - i if i >= n else i)
+
+
+def quad_axis_matrix(length: int) -> np.ndarray:
+    """K1-bwd's weights along one axis as a length × ceil(length/2) matrix M
+    (gx = M @ g along that axis), built the way ``csrc/blurpool.cu`` builds
+    them: quad m covers outputs 2m, 2m+1 and reads o = m-1..m+1; interior
+    quads (1 <= m, 2m + 5 <= length) take the constant weights (a3, a1, 0) and
+    (0, a2, a0); edge quads take ``axis_weights``' table from the definition
+    (a_k added to output r where reflect(2o - 1 + k) = 2m + r)."""
+    a = bp.TAPS
+    lo = (length + 1) // 2
+    mat = np.zeros((length, lo))
+    for m in range(lo):
+        table = np.zeros((2, 3))
+        for d in range(3):
+            o = m - 1 + d
+            if 0 <= o < lo:
+                for k in range(4):
+                    i = reflect(2 * o - 1 + k, length)
+                    for r in range(2):
+                        table[r, d] += a[k] if i == 2 * m + r else 0.0
+        if m >= 1 and 2 * m + 5 <= length:  # the kernel's interior branch
+            interior = np.array([[a[3], a[1], 0.0], [0.0, a[2], a[0]]])
+            np.testing.assert_array_equal(table, interior)
+            table = interior
+        for r in range(2):
+            for d in range(3):
+                o = m - 1 + d
+                if not (0 <= o < lo and 2 * m + r < length):
+                    assert table[r, d] == 0.0, (length, m, r, d)  # weight 0 off g / gx
+                else:
+                    mat[2 * m + r, o] += table[r, d]
+    return mat
+
+
+def reference_1d(x: torch.Tensor) -> torch.Tensor:
+    """The plain version along one axis: reflect pad (1, 2), taps, stride 2."""
+    a = torch.tensor(bp.TAPS, dtype=x.dtype)
+    return F.conv1d(F.pad(x[None, None], (1, 2), mode="reflect"), a.view(1, 1, 4),
+                    stride=2)[0, 0]
+
+
+@pytest.mark.parametrize("length", range(3, 41))
+def test_quad_weights_match_reference_vjp_1d(length):
+    """The quad tap algebra of K1-bwd, interior and edges, equals the
+    transpose of the 1-D plain version's Jacobian (autograd), exactly: every
+    weight is a sum of eighths."""
+    x = torch.zeros(length, dtype=torch.float64)
+    jac = torch.autograd.functional.jacobian(reference_1d, x)  # ceil(L/2) × L
+    np.testing.assert_array_equal(quad_axis_matrix(length), jac.numpy().T)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_quad_weights_match_reference_vjp_2d(shape):
+    """Composed along H and W per channel, the quad weights give the plain
+    backward (autograd of blurpool_reference, which computes in f32) at every
+    shape of the CPU set."""
+    rng = np.random.default_rng(5)
+    n, h, w, c = shape
+    g = rng.standard_normal(out_shape(shape)).astype(np.float32)
+    ref = reference_vjp(torch.zeros(shape), torch.from_numpy(g))
+    ours = np.einsum("io,nopc,jp->nijc", quad_axis_matrix(h), g, quad_axis_matrix(w))
+    np.testing.assert_allclose(ours, ref.numpy(), rtol=0, atol=1e-6)
+
+
+# where K1-bwd's vector path meets the quad edges: an axis of length 3 (four
+# taps on one g cell), odd H and W (half quads), the fewest quad rows H allows
+# (H = 3 and 4: two quad rows, both edges), one frame, C = 24 (3 bf16 / 6 f32
+# channel vectors a pixel) and C = 1032 bf16 (129 channel vectors: the loop
+# over channel vectors)
+EDGE_CASES = [((2, 3, 20, 8), torch.bfloat16), ((2, 20, 3, 8), torch.bfloat16),
+              ((1, 3, 3, 8), torch.bfloat16), ((2, 3, 20, 4), torch.float32),
+              ((2, 20, 3, 4), torch.float32), ((1, 3, 3, 4), torch.float32),
+              ((1, 13, 17, 8), torch.bfloat16), ((1, 13, 17, 8), torch.float32),
+              ((3, 4, 9, 8), torch.bfloat16), ((1, 3, 30, 8), torch.float32),
+              ((2, 11, 10, 24), torch.bfloat16), ((2, 11, 10, 24), torch.float32),
+              ((1, 9, 7, 1032), torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", EDGE_CASES)
+def test_kernel_backward_quad_edges(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g = torch.randn(out_shape(shape), generator=gen, device=cuda).to(dtype)
+    before = bp.blurpool_cuda_bwd.launches
+    gx = bp.blurpool_cuda_bwd(g, shape[1], shape[2])
+    torch.cuda.synchronize()
+    assert bp.blurpool_cuda_bwd.launches == before + 1
+    assert gx.dtype == dtype and gx.shape == shape
+    ref = reference_vjp(torch.zeros(shape, device=cuda, dtype=dtype), g).float()
+    atol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())
+    err = (gx.float() - ref).abs().max().item()
+    assert err <= atol, (err, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_unaligned(cuda, dtype):
+    """Contiguous tensors that start 2 bytes past a 16-byte boundary take the
+    scalar form, in the same quad layout."""
+    shape = (2, 9, 12, 8)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn(int(np.prod(out_shape(shape))) + 1, generator=gen,
+                       device=cuda).to(dtype)
+    g = flat[1:].view(out_shape(shape))
+    assert g.data_ptr() % 16 != 0
+    gx = bp.blurpool_cuda_bwd(g, shape[1], shape[2])
+    ref = reference_vjp(torch.zeros(shape, device=cuda, dtype=dtype), g).float()
+    atol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())
+    assert (gx.float() - ref).abs().max().item() <= atol
 
 
 @pytest.mark.cuda

@@ -13,8 +13,9 @@ at atol 5e-4; bf16 against the port's own f32 under the JAX package's bound
 
 On the card (``cuda`` marker, skipped without one): K3 against the plain
 version at the main path's shape (8 pairs, 60×107, a pyramid of random
-256-channel fmaps), at ragged sizes, far outside the map and with degenerate
-levels, within 1e-5 of max|out|: both compute the same products in f32 and
+256-channel fmaps), at ragged sizes, far outside the map, with degenerate
+levels and on levels that start off a 16-byte boundary, within 1e-5 of
+max|out|: both compute the same products in f32 and
 differ only where the compiler fuses a multiply and an add (one rounding);
 then the f32 forward on the card against the CPU's.
 
@@ -347,9 +348,11 @@ def card_pyramid(dev, b, h, w, c=256, seed=0):
     return praft.build_corr_pyramid(f1, f2), g
 
 
-# main path: 8 pairs at 60×107; ragged; far outside; degenerate levels
+# main path: 8 pairs at 60×107; ragged; far outside; degenerate levels;
+# B·h·w = 429, a multiple of neither 32 nor 64, with pixel tiles that cross
+# frame boundaries; fewer pixels than one tile
 CARD_CASES = [(8, 60, 107, 2.0), (3, 13, 17, 3.0), (2, 16, 19, 40.0), (2, 3, 5, 2.0),
-              (1, 6, 8, 2.0), (1, 1, 1, 2.0)]
+              (1, 6, 8, 2.0), (1, 1, 1, 2.0), (3, 11, 13, 3.0), (1, 5, 5, 2.0)]
 
 
 @pytest.mark.cuda
@@ -364,6 +367,27 @@ def test_kernel_matches_reference(cuda, b, h, w, spread):
     assert pwg.corr_lookup_cuda.launches == before + 1
     ref = pwg.corr_lookup_reference(pyramid, coords)
     assert out.shape == ref.shape == (b, 324, h, w) and out.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    assert err <= LOOKUP_TOL * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_levels_off_16_bytes(cuda, offset):
+    """Levels that start 4, 8 or 12 bytes past a 16-byte boundary, in NaN
+    that no output may show: K3's 4-byte copies take any f32 address."""
+    b, h, w = 3, 11, 13
+    pyramid, g = card_pyramid(cuda, b, h, w, seed=offset)
+    views = []
+    for v in pyramid:
+        buf = torch.full((v.numel() + 8,), float("nan"), device=cuda)
+        views.append(buf[offset:offset + v.numel()].view(v.shape))
+        views[-1].copy_(v)
+        assert views[-1].data_ptr() % 16 == 4 * offset
+    coords = praft.coords_grid(b, h, w, cuda)
+    coords = (coords + torch.randn(coords.shape, generator=g, device=cuda) * 4.0).contiguous()
+    out = pwg.corr_lookup_cuda(views, coords)
+    ref = pwg.corr_lookup_reference(pyramid, coords)
     err = (out - ref).abs().max().item()
     assert err <= LOOKUP_TOL * ref.abs().max().item(), err
 
