@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
+    python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -25,7 +26,8 @@ Phases, one line or more each (any failure raises and exits non-zero):
      the maps, timed beside its byte bound and the floor that 32-byte sectors
      put under it; with the error bounds and kernel vs plain (and, for K2,
      F.scaled_dot_product_attention, for K3 four F.grid_sample calls) times
-     from CUDA events, and the share of the bound each kernel reaches.
+     from CUDA events, and the share of the bound each kernel reaches; K1-fwd
+     also alone at the three bf16 shapes of an 8-frame training step.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
@@ -69,14 +71,31 @@ Phases, one line or more each (any failure raises and exits non-zero):
      24 GRU iterations, f32, 8 pairs a decode batch, every lookup through
      K3), with its phase times, the trajectory counts, peak memory and one
      decode batch's time.
-Each main path (phases 4, 5, 6, 8) runs with every kernel's launch count set
-to 0 just before it and read just after. Then one JSON line with the
-kernels, and last {"ok": true, "device": ...}.
+  9. the preprocess CLI at full width: T=12 PNG frames of phase 8's video at
+     854×476, phase 8's RAFT-large and phase 6's ViT-L/14 weights saved as
+     .pth checkpoints, a yaml that sets max_frames; cli.preprocess.main runs
+     in this process (stage 1 through K3, the ViT stage through K2, masks,
+     split, stage 5), every artifact is checked (the best-buddy one for its
+     mirror invariants), and 2 training steps run on the directory through
+     DINOTrackerRuntime.load_video_data. Printed: each stage's and phase's
+     seconds, the sweep's and the ambiguity pass's TFLOP/s, rows_total, peak
+     memory, the ambiguity pass again on every mutual pair (no flow filter,
+     the most rows the video can give), one ambiguity slab's product and NMS
+     timed apart with its kernel profile, and the artifact's size.
+  10. reference: stage 5 on T=6 frames of 224×126 (n=527, C=1024), GPU
+     against CPU: the adaptive sweep with the fused filter, a fixed cap of 64,
+     of_filter_best_buddies and compute_bb_ambiguity, each disagreement
+     allowed only inside a 1e-5 margin of the CPU's products and distances.
+Each main path (phases 4, 5, 6, 8, 9) runs with every kernel's launch count
+set to 0 just before it and read just after. Then one JSON line with the
+kernels (K2 and K3 counted over phases 6 + 9 and 8 + 9), and last
+{"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
 Imports no JAX, none of the JAX package's modules, and none of PyYAML,
-imageio or msgpack; Pillow only through the pipeline's mask jpgs.
+imageio or msgpack; Pillow for phase 9's PNG frames and the pipeline's mask
+jpgs; PyYAML only through the preprocess CLI's config.
 """
 
 import argparse
@@ -127,6 +146,9 @@ LOOKUP_TOL = 1e-5
 # RAFT flows, GPU against CPU, in units of max|flow|; trajectories chained
 # from the same flows on both, in px
 FLOW_TOL, TRAJ_TOL = 1e-4, 1e-4
+# the preprocess CLI's frames at full width; the best-buddy GPU-vs-CPU margin
+PREPROCESS_T = 12
+BB_MARGIN = 1e-5
 
 
 def check(cond, msg):
@@ -250,6 +272,22 @@ def phase_kernel_check(bp, dev):
                 ms += k
                 plain_ms += p
             del x, y, ref
+    for shape in TRAIN_SHAPES:  # the training step's three inputs, bf16
+        x = torch.randn(shape, generator=g, device=dev).bfloat16()
+        y = bp.blurpool_cuda(x)
+        ref = bp.blurpool_reference(x)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        bound = bf16_ulp(ref.float())
+        check(y.shape == ref.shape and err <= bound,
+              f"K1 {shape} bf16: max abs err {err} > bound {bound}")
+        k = cuda_ms(lambda: bp.blurpool_cuda(x))
+        least = blurpool_bound([shape])["bound_ms"]
+        print(f"kernel check: K1 {shape} bf16 (training step): max_abs_err {err:.3g} "
+              f"(bound {bound:.3g}), kernel {k:.4f} ms, its bound {least:.4f} ms (bytes; "
+              f"{least / k:.3f} of it), (ms - bound) x 10,000 launches = "
+              f"{(k - least) * 10:.3f} s", flush=True)
+        del x, y, ref
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **blurpool_bound(REAL_SHAPES)}
 
@@ -1191,6 +1229,334 @@ def phase_raft_reference(dev):
           "GPU and CPU chaining disagree")
 
 
+def write_preprocess_inputs(root, cfg, t, dev):
+    """A frame folder of T PNGs (textured_video at the config's size), the
+    random RAFT-large and ViT weights as .pth checkpoints (the flow head
+    scaled as in phase 8) and a preprocessing yaml that sets max_frames;
+    returns the CLI's arguments."""
+    from PIL import Image
+    from dino_tracker_tpu_torch.models import vit
+    h, w = cfg.video_resh, cfg.video_resw
+    folder = os.path.join(root, "vid", "video")
+    os.makedirs(folder)
+    frames = (textured_video(t, h, w, dev) * 255).round().byte().permute(0, 2, 3, 1).cpu()
+    for i, frame in enumerate(frames.numpy()):
+        Image.fromarray(frame).save(os.path.join(folder, f"{i:05d}.png"))
+    raft_path, vit_path = os.path.join(root, "raft.pth"), os.path.join(root, "vit.pth")
+    torch.save({k: v.cpu() for k, v in raft_state(dev, 11).items()}, raft_path)
+    vcfg = vit.ViTConfig.for_model(cfg.dino_model_name)
+    torch.save({k: v.cpu() for k, v in vit_state(vcfg, dev, 6).items()}, vit_path)
+    config = os.path.join(root, "preprocessing.yaml")
+    with open(config, "w") as f:
+        f.write(f"max_frames: {t}\n")
+    return ["--config", config, "--data-path", os.path.join(root, "vid"),
+            "--raft-checkpoint", raft_path, "--dino-checkpoint", vit_path,
+            "--device", str(dev)]
+
+
+def check_bb_artifact(bb, t):
+    """The BB artifact's invariants: the diagonal empty; validity, cos and r
+    mirror-symmetric; (u, s)'s coordinates (s, u)'s swapped; |cos| <= 1 (up
+    to 1e-6, the rounding of a unit dot product); r = 1 on empty slots and
+    finite on valid ones."""
+    valid, cos, r = bb.valid, bb.cos_sims, bb.r
+    mirror = lambda x: x.transpose(0, 1)
+    check(bb.source_coords.shape[:3] == valid.shape == cos.shape == r.shape
+          and valid.shape[:2] == (t, t), f"BB shapes {valid.shape}")
+    check(not bool(valid.diagonal().any()), "a diagonal pair has buddies")
+    check(torch.equal(valid, mirror(valid)) and torch.equal(cos, mirror(cos))
+          and torch.equal(r, mirror(r)), "BB validity, cos or r is not mirror-symmetric")
+    check(torch.equal(bb.source_coords, mirror(bb.target_coords)),
+          "the reverse direction is not the forward one swapped")
+    check(bool((cos.abs() <= 1 + 1e-6).all()), f"|cos| up to {cos.abs().max().item()}")
+    check(bool((r[~valid] == 1).all()) and bool(r[valid].isfinite().all()),
+          "r is not 1 on empty slots or not finite on valid ones")
+
+
+def phase_preprocess(dev, t=PREPROCESS_T):
+    """The preprocess CLI in this process on PNG frames and .pth checkpoints
+    at full width (dinov2_vitl14, RAFT-large, 854×476, T frames), every
+    artifact checked, then 2 training steps on the directory through the
+    port's training data path. Returns the CLI's K2 and K3 launches."""
+    from dino_tracker_tpu_torch import runtime
+    from dino_tracker_tpu_torch.cli import preprocess
+    from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig, feature_grid_size
+    from dino_tracker_tpu_torch.models import vit
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.preprocessing import best_buddies as bb_lib
+    from dino_tracker_tpu_torch.structures import load_bb_data
+    from dino_tracker_tpu_torch.training import train
+    from dino_tracker_tpu_torch.utils import video_io
+    cfg = PreprocessConfig(max_frames=t)
+    h, w = cfg.video_resh, cfg.video_resw
+    c = vit.ViTConfig.for_model(cfg.dino_model_name).embed_dim
+    root = os.path.join(WORK_DIR, "preprocess")
+    shutil.rmtree(root, ignore_errors=True)
+    args = write_preprocess_inputs(root, cfg, t, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe = preprocess.main(args)
+    total = time.perf_counter() - t0
+    launches = (fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = ((max(cfg.dino_layer, cfg.mask_dino_layer) + 1)
+                * -(-t // cfg.extract_frames_per_batch), cfg.raft_iters * decode_batches(t))
+    check(launches == expected, f"K2 / K3 launched {launches} times in the preprocess "
+          f"CLI, expected {expected}")
+
+    paths = pipe.paths
+    trajs = video_io.load_npz(paths["trajectories_file"])["trajectories"]
+    unfiltered = video_io.load_npz(paths["unfiltered_trajectories_file"])["trajectories"]
+    check_trajectories(trajs, t, h, w, "filtered")
+    check_trajectories(unfiltered, t, h, w, "unfiltered")
+    fg, bg = (video_io.load_npz(paths[k])["trajectories"]
+              for k in ("fg_trajectories_file", "bg_trajectories_file"))
+    check(len(fg) + len(bg) == len(trajs), "the split lost trajectories")
+    grid = feature_grid_size(h, w, 14, cfg.dino_stride)
+    for key in ("dino_embed_video_path", "mask_dino_embed_video_path"):
+        art = video_io.load_npz(paths[key])["features"]
+        check(art.dtype == np.float16 and art.shape == (t, c, *grid)
+              and np.isfinite(art).all(), f"{key}: {art.dtype} {art.shape}")
+    masks = video_io.load_masks(paths["masks_path"], h, w)
+    check(masks.shape == (t, h, w), f"masks {masks.shape}")
+    with open(os.path.join(paths["dino_bb_dir"], "bb_truncation.json")) as f:
+        sweep = json.load(f)
+    check(sweep["truncated_pairs"] == 0 and sweep["total_pairs"] == t * (t - 1) // 2,
+          f"bb_truncation.json: {sweep}")
+    bb = load_bb_data(os.path.join(paths["dino_bb_dir"], "dino_best_buddies_filtered.npz"), dev)
+    check_bb_artifact(bb, t)
+    rows = pipe.telemetry["bb_ambiguity"]["rows_total"]
+    check(rows == int(bb.valid.sum()), f"{rows} ambiguity rows for {int(bb.valid.sum())} buddies")
+
+    # training on the directory, through the port's training data path
+    tcfg = TrainConfig()
+    rt = runtime.DINOTrackerRuntime(pipe.data_path, tcfg, dev)
+    data = rt.load_video_data()
+    trainer = train.Trainer(tcfg, rt.tcfg, data, paths["ckpt_folder"], seed=2, device=dev)
+    model = trainer.init_model().train()
+    opt, sched = train.make_optimizer(model, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses = [train.train_step(model, opt, sched, data, gen, False, False, tcfg, rt.tcfg)
+              for _ in range(2)]
+    check(all(bool(torch.stack(list(m.values())).isfinite().all()) for m in losses),
+          "a non-finite loss training on the preprocessed directory")
+
+    # the ambiguity pass again with every mutual pair (the sweep without the
+    # flow filter) on the f16 artifact upcast: the most rows this video can
+    # give it, since the random RAFT's trajectories leave few flow gaps
+    feats = torch.from_numpy(video_io.load_npz(paths["dino_embed_video_path"])["features"]
+                             ).to(dev).float()
+    every = bb_lib.extract_best_buddies(feats, h, w, cfg.dino_stride)
+    amb_all = {}
+    t0 = time.perf_counter()
+    bb_lib.compute_bb_ambiguity(every, feats, h, w, cfg.dino_stride, telemetry=amb_all)
+    torch.cuda.synchronize()
+    amb_all_s = time.perf_counter() - t0
+    profile_ambiguity_slab(feats, bb_lib, h, w, cfg.dino_stride)
+    del feats, every
+
+    tm = pipe.timings
+    n = grid[0] * grid[1]
+    pairs = t * (t - 1) // 2
+    bb_s = tm["preprocess/best_buddies"]
+    sweep_tflops = pairs * 2.0 * n * n * c / tm["bb_sweep"] / 1e12
+    amb_tflops = rows * 2.0 * n * c / tm["bb_ambiguity"] / 1e12
+    print(f"preprocess: cli.preprocess T={t} {w}x{h} {cfg.dino_model_name} + RAFT-large: "
+          f"{total:.3f} s in all; " + ", ".join(
+              f"{k.split('/')[1]} {v:.3f} s" for k, v in tm.items() if k.startswith("preprocess/"))
+          + f"; peak memory {peak:.2f} GiB; K2 / K3 launches {launches}", flush=True)
+    print(f"preprocess: best buddies {bb_s:.3f} s: " + ", ".join(
+        f"{k} {tm[k]:.3f} s" for k in ("bb_closest_grids", "bb_sweep", "bb_compaction",
+                                        "bb_ambiguity", "bb_save"))
+          + f"; sweep {pairs} pairs at n={n} ({sweep_tflops:.1f} TFLOP/s f32), ambiguity "
+          f"rows_total {rows} ({amb_tflops:.1f} TFLOP/s), m_max "
+          f"{pipe.telemetry['bb_ambiguity']['m_max']}, ambiguity phases "
+          f"{json.dumps(pipe.telemetry['bb_ambiguity']['phases'])}", flush=True)
+    rows_all = amb_all["rows_total"]
+    print(f"preprocess: ambiguity with every mutual pair (no flow filter): rows_total "
+          f"{rows_all} in {amb_all_s:.3f} s ({rows_all * 2.0 * n * c / amb_all_s / 1e12:.1f} "
+          f"TFLOP/s, {amb_all_s / max(rows_all, 1) * 1e6:.3f} us a row), m_max "
+          f"{amb_all['m_max']}, phases {json.dumps(amb_all['phases'])}", flush=True)
+    art = os.path.join(paths["dino_bb_dir"], "dino_best_buddies_filtered.npz")
+    raw_mb = sum(x.numel() * x.element_size() for x in bb) / 1e6
+    print(f"preprocess: dino_best_buddies_filtered.npz {os.path.getsize(art) / 1e6:.1f} MB "
+          f"compressed from {raw_mb:.1f} MB in {tm['bb_save']:.3f} s", flush=True)
+    print(f"preprocess: {len(trajs)} filtered / {len(unfiltered)} unfiltered trajectories, "
+          f"{len(fg)} fg / {len(bg)} bg; fg share {float((masks > 127).mean()):.4f}; "
+          f"best-buddy cap {sweep['cap']} (adaptive {sweep['adaptive']}), max count "
+          f"{sweep['max_count']}, mean count {sweep['mean_count']:.1f}, truncated pairs "
+          f"{sweep['truncated_pairs']} of {sweep['total_pairs']}; 2 train steps on the "
+          f"directory: losses {', '.join(f'{float(v):.4g}' for v in losses[-1].values())}",
+          flush=True)
+    return launches
+
+
+def profile_ambiguity_slab(feats, bb_lib, h, w, stride, rows=8192):
+    """One ambiguity slab at the main path's shape (8,192 unit rows of frame
+    1 against frame 0's n tokens): the f32 product and nms_top2_peaks timed
+    apart with CUDA events, then the slab's device time by kernel
+    (torch.profiler, CUDA activity). Returns (product ms, NMS ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dino_tracker_tpu_torch.models.nn import exact_f32_matmuls
+    from dino_tracker_tpu_torch.ops import nms
+    from dino_tracker_tpu_torch.utils.coords import bb_meshgrid
+    fn = bb_lib._normalized_tokens(feats[:2])
+    grid = bb_meshgrid(h, w, stride, device=feats.device)
+    src = fn[1][torch.arange(rows, device=feats.device) % fn.shape[1]]
+
+    def product():
+        with exact_f32_matmuls(src):
+            return src @ fn[0].T
+
+    sim = product()
+    gemm_ms = cuda_ms(product, iters=5)
+    nms_ms = cuda_ms(lambda: nms.nms_top2_peaks(sim, grid), iters=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nms.nms_top2_peaks(product(), grid)
+        torch.cuda.synchronize()
+    rows_by = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                      for e in prof.key_averages()), reverse=True)
+    total = sum(r[0] for r in rows_by)
+    print(f"preprocess: one ambiguity slab ({rows} rows x n={fn.shape[1]}): f32 product "
+          f"{gemm_ms:.3f} ms ({2.0 * rows * fn.shape[1] * fn.shape[2] / gemm_ms / 1e9:.1f} "
+          f"TFLOP/s), nms_top2_peaks {nms_ms:.3f} ms; profile {total:.3f} ms of device time:",
+          flush=True)
+    for ms, count, name in rows_by[:8]:
+        print(f"preprocess:   {ms:8.3f} ms {count:4d}x {name[:100]}", flush=True)
+    return gemm_ms, nms_ms
+
+
+def bb_reference_inputs(t, c, gh, gw, h, w, seed):
+    """Features (a per-position code plus per-frame noise, so mutual matches
+    exist) and N×T×2 trajectories at random positions, each missing from a
+    random 40% of the frames."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.randn((1, c, gh, gw), generator=g)
+    feats = pos + 2.5 * torch.randn((t, c, gh, gw), generator=g)
+    n_traj = 3000
+    trajs = torch.rand((n_traj, t, 2), generator=g) * torch.tensor([w - 1.0, h - 1.0])
+    trajs[torch.rand((n_traj, t), generator=g) < 0.4] = float("nan")
+    return feats, trajs.numpy()
+
+
+def top2_gap(x, dim):
+    top = x.topk(2, dim=dim).values
+    return top.select(dim, 0) - top.select(dim, 1)
+
+
+def phase_bb_reference(dev):
+    """Stage 5 on T=6 frames of 224×126 (n = 17×31 = 527 tokens, C=1024),
+    GPU against CPU: the adaptive sweep with the fused filter, a fixed cap
+    of 64 (< n), of_filter_best_buddies on the CPU's capped result and
+    compute_bb_ambiguity on each device's adaptive result. Margins come from
+    the CPU's f32 products: a token whose best and second-best cosine, along
+    either axis, lie within BB_MARGIN, or (fixed cap) whose cosine lies
+    within it of its pair's 64th, or whose nearest trajectory at either frame
+    is within BB_MARGIN (relative) of the second nearest, may flip; every
+    disagreement must lie among them. Cos within BB_MARGIN of max|cos|; r
+    within BB_MARGIN on rows whose peak1 and 400th/401st similarities, in
+    both directions, are separated by more than BB_MARGIN."""
+    from dino_tracker_tpu_torch.preprocessing import best_buddies as bbl
+    from dino_tracker_tpu_torch.utils.coords import bb_meshgrid
+    cpu = torch.device("cpu")
+    t, h, w, c, cap = 6, 126, 224, 1024, 64
+    gh, gw = 17, 31
+    n = gh * gw
+    feats, trajs = bb_reference_inputs(t, c, gh, gw, h, w, 16)
+    out = []  # on the GPU, then on the CPU
+    for d in (dev, cpu):
+        f = feats.to(d)
+        adaptive = bbl.extract_best_buddies(f, h, w, unfiltered_trajectories=trajs)
+        fixed = bbl.extract_best_buddies(f, h, w, cap=cap)
+        out.append([adaptive, fixed, bbl.compute_bb_ambiguity(adaptive, f, h, w),
+                    bbl.closest_trajectory_grids(trajs, bb_meshgrid(h, w, device=d))])
+    to = lambda bb, d: type(bb)(*(x.to(d) for x in bb))
+    gpu = [to(r, cpu) if isinstance(r, tuple) else r.cpu() for r in out[0]]
+    ref = out[1]
+    check(gpu[0].valid.shape == ref[0].valid.shape,
+          f"adaptive capacities differ: {gpu[0].capacity} vs {ref[0].capacity}")
+    filt = [bbl.of_filter_best_buddies(to(ref[1], d), trajs, h, w).valid.cpu()
+            for d in (dev, cpu)]
+
+    # margins on the CPU's own products
+    grid = bb_meshgrid(h, w)
+    fn = bbl._normalized_tokens(feats)  # T×n×C
+    dist = torch.stack([torch.cdist(grid[None].double(), torch.from_numpy(
+        np.nan_to_num(trajs[:, f], nan=1e12)).double()[None])[0] for f in range(t)])
+    near2 = dist.topk(2, dim=2, largest=False).values
+    close_near = (near2[..., 1] - near2[..., 0]) <= BB_MARGIN * near2[..., 0]  # T×n
+    tok = lambda xy: ((xy[..., 1] - 7) / 7 * gw + (xy[..., 0] - 7) / 7).round().long()
+    near_tokens = disagree = 0
+    cos_err, max_cos = 0.0, 0.0
+    for s in range(t):
+        for u in range(s + 1, t):
+            aff = fn[s] @ fn[u].T
+            src_max = aff.argmax(1)
+            near = (top2_gap(aff, 1) <= BB_MARGIN) | (top2_gap(aff, 0)[src_max] <= BB_MARGIN)
+            cos = aff.max(1).values
+            mutual = aff.argmax(0)[src_max] == torch.arange(n)
+            if mutual.sum() > cap:  # the fixed cap's boundary
+                kth_cos = cos[mutual].topk(cap).values[-1]
+                near_cap = near | ((cos - kth_cos).abs() <= BB_MARGIN)
+            else:
+                near_cap = near
+            near_f = near | close_near[s] | close_near[u][src_max]
+            for (g_bb, r_bb), allowed in (((gpu[0], ref[0]), near_f), ((gpu[1], ref[1]), near_cap)):
+                sets = []
+                for bb in (g_bb, r_bb):
+                    v = bb.valid[s, u]
+                    sets.append({(int(i), int(j)): float(x) for i, j, x in zip(
+                        tok(bb.source_coords[s, u][v]), tok(bb.target_coords[s, u][v]),
+                        bb.cos_sims[s, u][v])})
+                for key in sets[0].keys() ^ sets[1].keys():
+                    disagree += 1
+                    check(bool(allowed[key[0]]), f"pair ({s}, {u}): buddy {key} on one "
+                          "device only, outside the margin")
+                for key in sets[0].keys() & sets[1].keys():
+                    cos_err = max(cos_err, abs(sets[0][key] - sets[1][key]))
+                    max_cos = max(max_cos, abs(sets[1][key]))
+            near_tokens += int(near_f.sum()) + int(near_cap.sum())
+    check(cos_err <= BB_MARGIN * max_cos, f"cos differs by {cos_err} (max |cos| {max_cos})")
+    close_ok = (gpu[3] == ref[3]) | close_near
+    check(bool(close_ok.all()), "closest-trajectory indices differ outside the margin")
+
+    # the OF filter of one input on both devices: only nearest-trajectory ties may flip
+    src_tok, tgt_tok = tok(ref[1].source_coords), tok(ref[1].target_coords)
+    fr = torch.arange(t)
+    filt_near = (close_near[fr[:, None, None], src_tok.clamp(0, n - 1)]
+                 | close_near[fr[None, :, None], tgt_tok.clamp(0, n - 1)])
+    check(bool(((filt[0] == filt[1]) | filt_near).all()), "OF filter differs outside the margin")
+
+    # r on rows stable in both directions, where both devices hold the same buddy
+    same = (gpu[0].valid == ref[0].valid) & (gpu[0].source_coords == ref[0].source_coords).all(-1)
+    stable = torch.zeros_like(ref[0].valid)
+    for s in range(t):
+        for u in range(t):
+            v = ref[0].valid[s, u]
+            if s == u or not v.any():
+                continue
+            sims = fn[s][tok(ref[0].source_coords[s, u][v])] @ fn[u].T
+            top = sims.topk(401, dim=1).values
+            ok = ((top[:, 0] - top[:, 1]) > BB_MARGIN) & ((top[:, 399] - top[:, 400]) > BB_MARGIN)
+            stable[s, u, v] = ok
+    stable &= stable.transpose(0, 1).clone() & same
+    r_err = float((gpu[2].r - ref[2].r).abs()[stable].max()) if stable.any() else 0.0
+    check(r_err <= BB_MARGIN and int(stable.sum()) > 0, f"r differs by {r_err} on stable rows")
+    print(f"reference: best buddies T={t} {w}x{h} n={n} C={c}, GPU vs CPU: adaptive with the "
+          f"fused filter {int(ref[0].valid.sum())} buddies (cap {ref[0].capacity}), cap {cap} "
+          f"{int(ref[1].valid.sum())}; {near_tokens} token checks inside the {BB_MARGIN} "
+          f"margin, {disagree} buddies on one device only (all inside it); cos max diff "
+          f"{cos_err:.3g} (bound {BB_MARGIN * max_cos:.3g}); closest trajectories "
+          f"{int((gpu[3] != ref[3]).sum())} of {gpu[3].numel()} differ ({int(close_near.sum())} "
+          f"inside the margin); OF filter {int((filt[0] != filt[1]).sum())} slots differ; r max "
+          f"diff {r_err:.3g} on {int(stable.sum())} of {int(ref[0].valid.sum())} rows "
+          f"(bound {BB_MARGIN})", flush=True)
+
+
 def build_kernels(sources):
     """nvcc for each (name, module) at once; prints each source's seconds and
     what ptxas reports for its kernels."""
@@ -1210,6 +1576,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--raft-frames", type=int, default=0,
                     help="run only the K3 build and stage 1 at this many frames")
+    ap.add_argument("--preprocess-frames", type=int, default=0,
+                    help="run only the K2 and K3 builds and the preprocess CLI at "
+                         "this many frames")
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
@@ -1247,6 +1616,10 @@ def main():
         print(f"raft: one decode batch with torch.backends.cudnn.benchmark on: "
               f"{ms:.2f} ms", flush=True)
         return
+    if args.preprocess_frames:  # the preprocess CLI alone
+        build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
+        phase_preprocess(dev, args.preprocess_frames)
+        return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
                    ("corr_lookup.cu", wg)])
 
@@ -1262,12 +1635,15 @@ def main():
           f"{vit_launches * k2['ms'] / 1e3:.3f} s, {vit_launches * k2['ms'] / 1e3 / vit_s:.3f} "
           f"of the features' {vit_s:.3f} s", flush=True)
     raft_launches = phase_raft(dev)[0]
+    pre_k2, pre_k3 = phase_preprocess(dev)
     phase_train_reference(dev)
     phase_reference(dev)
     phase_vit_reference(dev)
     phase_raft_reference(dev)
+    phase_bb_reference(dev)
 
-    # launches: the sum of the main-path runs, each counted from 0; K1 ms /
+    # launches: the sum of the main-path runs (K2 and K3 also the preprocess
+    # CLI's), each counted from 0; K1 ms /
     # plain_ms / bound_ms: the sum over its three bf16 shapes; K2's at the
     # ViT stage's shape; K3's at one decode batch's
     def entry(name, source, replaces, launches, numbers):
@@ -1282,9 +1658,9 @@ def main():
         entry("blurpool_up_nhwc", "blurpool.cu",
               "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1], k1_bwd),
         entry("flash_attention", "flash_attention.cu",
-              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches, k2),
+              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches + pre_k2, k2),
         entry("corr_lookup", "corr_lookup.cu",
-              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches, k3)]}))
+              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches + pre_k3, k3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -169,6 +169,16 @@ class VisionTransformer(nn.Module):
         return torch.cat([pe[:, :1], r[0].permute(1, 2, 0).reshape(1, h0 * w0, d)],
                          dim=1)
 
+    def embed(self, x: torch.Tensor, stride: int, cd: torch.dtype):
+        """Patch embedding in cd, cls token and the resized pos-embed ->
+        (B×S×D f32 residual stream, (h0, w0))."""
+        conv = self.patch_embed.proj
+        x = F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=stride)
+        b, d, h0, w0 = x.shape
+        x = torch.cat([self.cls_token.to(cd).expand(b, 1, d),
+                       x.flatten(2).transpose(1, 2)], dim=1)
+        return x.float() + self.interpolate_pos_embed((h0, w0), cd), (h0, w0)
+
     def forward_features(self, frames_nchw: torch.Tensor, stride: int,
                          layers: Sequence[int], facet: str = "tokens",
                          compute_dtype: torch.dtype = torch.float32):
@@ -189,14 +199,10 @@ class VisionTransformer(nn.Module):
                 f"values; set dino_layer/mask_dino_layer to < {depth} for "
                 f"smaller variants")
         cd = compute_dtype
-        conv = self.patch_embed.proj
         x = frames_nchw.to(cd)
         with _exact_f32_convs(x), exact_f32_matmuls(x):
-            x = F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=stride)
-            b, d, h0, w0 = x.shape
-            x = torch.cat([self.cls_token.to(cd).expand(b, 1, d),
-                           x.flatten(2).transpose(1, 2)], dim=1)
-            x = x.float() + self.interpolate_pos_embed((h0, w0), cd)
+            x, (h0, w0) = self.embed(x, stride, cd)
+            b, _, d = x.shape
             sel = {"queries": 0, "keys": 1, "values": 2}.get(facet)
             found = {}
             for i in range(max(layers) + 1):
@@ -205,6 +211,37 @@ class VisionTransformer(nn.Module):
                     found[i] = x if sel is None else qkv.view(
                         b, x.shape[1], 3, d)[:, :, sel]
         return [found[l] for l in layers], (h0, w0)
+
+
+@torch.no_grad()
+def keys_self_similarity(model: VisionTransformer, frames_nchw: torch.Tensor,
+                         stride: int, layer: int) -> torch.Tensor:
+    """Cosine self-similarity B×S×S of a layer's key facet over all tokens,
+    f32 (reference extractor.py:269-274; JAX ``vit.py:331-342``)."""
+    keys = model.forward_features(frames_nchw, stride, [layer], facet="keys")[0][0]
+    normed = keys / torch.linalg.vector_norm(keys, dim=-1, keepdim=True).clamp(min=1e-8)
+    with exact_f32_matmuls(normed):
+        return normed @ normed.transpose(1, 2)
+
+
+@torch.no_grad()
+def attention_maps(model: VisionTransformer, frames_nchw: torch.Tensor, stride: int,
+                   layer: int) -> torch.Tensor:
+    """Post-softmax attention maps B×H×S×S of one block, f32 (reference
+    extractor.py:118-122,160-166; JAX ``vit.py:345-376``): a plain softmax of
+    the full S×S logits, so use it at coarse strides only."""
+    cd = torch.float32
+    x = frames_nchw.to(cd)
+    with _exact_f32_convs(x), exact_f32_matmuls(x):
+        x, _ = model.embed(x, stride, cd)
+        for blk in model.blocks[:layer]:
+            x = blk(x, cd)[0]
+        blk = model.blocks[layer]
+        b, s, d = x.shape
+        qkv = _linear(_layer_norm(x, blk.norm1, blk.eps, cd), blk.attn.qkv)
+        q, k, _ = qkv.view(b, s, 3, blk.num_heads, d // blk.num_heads).permute(2, 0, 3, 1, 4)
+        logits = q @ k.transpose(-1, -2) / math.sqrt(d // blk.num_heads)
+    return torch.softmax(logits, dim=-1)
 
 
 def extract_feature_video(model: VisionTransformer, video_tchw: torch.Tensor,

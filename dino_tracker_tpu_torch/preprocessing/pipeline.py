@@ -1,27 +1,35 @@
-"""Preprocessing orchestrator of the port: RAFT trajectories and the ViT
-feature stage (port of ``dino_tracker_tpu/preprocessing/pipeline.py:64-193``
-and ``:291-302``).
+"""Preprocessing orchestrator of the port, every stage in one process (port
+of ``dino_tracker_tpu/preprocessing/pipeline.py``).
 
-Stages ported so far, as the JAX package's ``run()`` calls them:
+``run()`` calls the stages in the JAX package's order:
   1. RAFT flows → chained trajectories: ``extract_trajectories_both`` (both
      passes, with and without the direct-flow filter, in one sweep; the
-     filtered one written as ``trajectories.npz``) and the single pass
-     ``extract_trajectories`` (``run()`` takes it when the filter is off);
+     filtered one written as ``trajectories.npz``), or the single pass
+     ``extract_trajectories`` for both artifacts when the filter is off;
   2. DINO feature video (layer 15 tokens, stride 7) — with the fg-mask layer
      (23) from the same ViT sweep when both share facet and stride;
-  3. fg masks from the layer-23 feature PCA (``fg_mask.py``);
-  4. fg/bg trajectory split (``split_fg_bg.py``).
+  3. fg masks from the layer-23 feature PCA (``fg_mask.py``), skipped when
+     the masks folder exists;
+  4. fg/bg trajectory split (``split_fg_bg.py``);
+  5. best buddies (``best_buddies.py``): the unfiltered trajectories are
+     written, then the mutual-NN sweep with the optical-flow filter fused,
+     ``bb_truncation.json``, the NMS ambiguity and
+     ``dino_best_buddies_filtered.npz``, all on the f32 features the ViT
+     stage left on the device.
 Artifacts land in the JAX package's layout (``config.add_config_paths``), so
 the two packages read each other's files. Feature videos are cast to the
 store dtype (f16) on the device and written from a background thread; a
-writer failure is re-raised by ``join_saves``. Stage 5 (best buddies),
-``run()`` and ``cli/preprocess.py`` wait for the best-buddy slice.
+writer failure is re-raised by ``join_saves``. ``timings`` holds the host
+seconds of each stage (under the JAX package's stage names) and phase, each
+ending in a device sync.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 import threading
 import time
 from typing import Dict, Optional, Sequence, Union
@@ -32,7 +40,9 @@ import torch
 from ..config import PreprocessConfig, add_config_paths
 from ..models.raft import RAFT
 from ..models.vit import VisionTransformer, extract_feature_video
+from ..structures import save_bb_data
 from ..utils import video_io
+from . import best_buddies as bb_lib
 from . import fg_mask as fg_lib
 from . import split_fg_bg as split_lib
 from . import trajectories as traj_lib
@@ -58,8 +68,10 @@ class PreprocessingPipeline:
         self.paths = add_config_paths(self.data_path)
         self._save_threads = []
         self._engine = None
-        # host seconds of stage 1's phases, each ending in a device sync
+        # host seconds of each stage and phase, each ending in a device sync
         self.timings: Dict[str, float] = {}
+        # the best-buddy stage's sweep and ambiguity telemetry
+        self.telemetry: Dict[str, dict] = {}
 
     @property
     def video(self) -> torch.Tensor:
@@ -197,6 +209,80 @@ class PreprocessingPipeline:
         video_io.save_npz(self.paths["bg_trajectories_file"], trajectories=bg)
         logger.info("split: %d fg / %d bg trajectories", len(fg), len(bg))
         return fg, bg
+
+    def compute_best_buddies(self, features: torch.Tensor,
+                             unfiltered_trajs: np.ndarray):
+        """Stage 5 on the f32 feature video: the sweep with the optical-flow
+        filter fused before the cap, ``bb_truncation.json`` beside the
+        artifact, the ambiguity pass, ``dino_best_buddies_filtered.npz``."""
+        h, w = self.cfg.video_resh, self.cfg.video_resw
+        stride = self.cfg.dino_stride
+        sweep: dict = {}
+        bb = bb_lib.extract_best_buddies(
+            features, h, w, stride, cap=self.cfg.bb_max_pairs_per_frame_pair,
+            unfiltered_trajectories=unfiltered_trajs, telemetry=sweep)
+        phases = sweep["phases"]
+        self.timings["bb_closest_grids"] = phases["closest_grids_s"]
+        self.timings["bb_sweep"] = phases["sweep_s"]
+        self.timings["bb_compaction"] = phases["compaction_s"]
+        # the reference keeps every mutual pair; the cap's truncation is
+        # recorded beside the artifact so it is never silent
+        os.makedirs(self.paths["dino_bb_dir"], exist_ok=True)
+        with open(os.path.join(self.paths["dino_bb_dir"], "bb_truncation.json"), "w") as f:
+            json.dump(sweep, f, indent=1)
+        ambiguity: dict = {}
+        bb = self._timed("bb_ambiguity", lambda: bb_lib.compute_bb_ambiguity(
+            bb, features, h, w, stride, box_size=float(self.cfg.dino_bb_box_size),
+            iou_thresh=self.cfg.dino_bb_iou_threshold, topk=self.cfg.dino_bb_nms_topk,
+            telemetry=ambiguity))
+        self.telemetry.update(best_buddies=sweep, bb_ambiguity=ambiguity)
+        out = os.path.join(self.paths["dino_bb_dir"], "dino_best_buddies_filtered.npz")
+        self._timed("bb_save", lambda: save_bb_data(out, bb))
+        logger.info("saved %s", out)
+        return bb
+
+    def run(self):
+        """Every stage, in the JAX package's order (its ``run()``,
+        ``pipeline.py:226-289``), then a per-stage report of ``timings``."""
+        cfg, paths = self.cfg, self.paths
+
+        def stage(name, fn):
+            return self._timed(f"preprocess/{name}", fn)
+
+        if cfg.filter_using_direct_flow:
+            trajs, unfiltered = stage("trajectories", self.extract_trajectories_both)
+        else:  # without the direct filter both passes are one computation
+            trajs = unfiltered = stage("trajectories", lambda: self.extract_trajectories(
+                False, paths["trajectories_file"]))
+        need_masks = not os.path.exists(paths["masks_path"])
+        if need_masks and cfg.mask_dino_model_name != cfg.dino_model_name:
+            logger.warning(
+                "mask_dino_model_name %s != dino_model_name %s — the loaded DINO "
+                "weights are used for both", cfg.mask_dino_model_name, cfg.dino_model_name)
+        if need_masks and (cfg.mask_dino_facet, cfg.mask_dino_stride) == (
+                cfg.dino_facet, cfg.dino_stride):  # both layers from one ViT sweep
+            feats, mask_feats = stage("dino_features", lambda: self.extract_dino_features(
+                [cfg.dino_layer, cfg.mask_dino_layer],
+                [paths["dino_embed_video_path"], paths["mask_dino_embed_video_path"]]))
+            stage("fg_masks", lambda: self.create_fg_masks(mask_feats))
+            del mask_feats
+        else:
+            feats = stage("dino_features", lambda: self.extract_dino_features(
+                cfg.dino_layer, paths["dino_embed_video_path"]))
+            if need_masks:
+                stage("fg_masks", lambda: self.create_fg_masks(self.extract_dino_features(
+                    cfg.mask_dino_layer, paths["mask_dino_embed_video_path"],
+                    facet=cfg.mask_dino_facet, stride=cfg.mask_dino_stride)))
+            else:
+                logger.info("masks exist, skipping fg-mask stage")
+        stage("split_fg_bg", lambda: self.split_trajectories(trajs))
+        stage("unfiltered_trajectories", lambda: video_io.save_npz(
+            paths["unfiltered_trajectories_file"], trajectories=unfiltered))
+        logger.info("saved %s: %s", paths["unfiltered_trajectories_file"], unfiltered.shape)
+        stage("best_buddies", lambda: self.compute_best_buddies(feats, unfiltered))
+        self.join_saves()
+        logger.info("stage timing report:\n%s", "\n".join(
+            f"  {name}: {s:.3f} s" for name, s in self.timings.items()))
 
     def join_saves(self):
         """Block until every async artifact write has landed; re-raise the

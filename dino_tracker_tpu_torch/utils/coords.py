@@ -79,3 +79,17 @@ def soft_argmax_pixel_grid(video_h: int, video_w: int, patch_size: int = 14,
     xs = torch.arange(w_start, w_end, step, dtype=torch.float32, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1)
+
+
+def bb_meshgrid(h: int, w: int, stride: int = 7, patch_size: int = 14,
+                device=None) -> torch.Tensor:
+    """Best-buddy patch-center grid, N×2 (x, y) row-major (JAX
+    utils/coords.py:99-106): ``vit_feature_coords`` with the arange end at
+    ``size`` (reference preprocessing_dino_bb/dino_bb_utils.py:5-15), so at
+    sizes whose sides minus the patch are not multiples of the stride it has
+    more points than the feature grid."""
+    half = patch_size // 2
+    x = torch.arange(half, w, stride, dtype=torch.float32, device=device)
+    y = torch.arange(half, h, stride, dtype=torch.float32, device=device)
+    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)

@@ -86,7 +86,8 @@ PORT_MODULES = ('runtime', 'cli.train', 'structures', 'training.train',
                 'preprocessing.split_fg_bg', 'preprocessing.pipeline',
                 'utils.video_io', 'utils.native_io', 'evaluation.tapvid',
                 'models.raft', 'ops.window_gather', 'preprocessing.flow',
-                'preprocessing.trajectories', 'utils.native_traj')
+                'preprocessing.trajectories', 'utils.native_traj',
+                'preprocessing.best_buddies', 'ops.nms', 'cli.preprocess')
 
 
 def test_port_imports_no_jax():
@@ -135,7 +136,8 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
     """With ``dino_tracker_tpu`` (and jax) unimportable, the port reads the
     repo's train config, maps the path contract, loads a frame folder and
     chains trajectories (RAFT, flow engine, chaining and the native
-    occupancy update imported)."""
+    occupancy update imported) and runs the best-buddy sweep and its
+    ambiguity pass (the preprocess CLI imported)."""
     from PIL import Image
     frames = tmp_path / "vid" / "video"
     frames.mkdir(parents=True)
@@ -164,10 +166,16 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
         "from dino_tracker_tpu_torch.models import raft\n"
         "from dino_tracker_tpu_torch.preprocessing import flow, trajectories\n"
         "fwd = torch.zeros(2, 2, 6, 7)\n"
-        "print(trajectories.extract_trajectories(fwd, fwd).shape)\n")
+        "print(trajectories.extract_trajectories(fwd, fwd).shape)\n"
+        "from dino_tracker_tpu_torch.cli import preprocess\n"
+        "from dino_tracker_tpu_torch.preprocessing import best_buddies\n"
+        "feats = torch.eye(35)[:, :16].T.reshape(1, 16, 5, 7).repeat(2, 1, 1, 1)\n"
+        "bb = best_buddies.extract_best_buddies(feats, 42, 56)\n"
+        "bb = best_buddies.compute_bb_ambiguity(bb, feats, 42, 56)\n"
+        "print(int(bb.valid.sum()), bb.capacity)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[:2] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
-                                          "(42, 3, 2)"]
+    assert out.stdout.split("\n")[:3] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
+                                          "(42, 3, 2)", "32 35"]

@@ -188,3 +188,24 @@ def test_weights_from_disk_match_jax_conversion(tmp_path):
             ref, rtol=0, atol=0)
     assert vit_convert.load_dinov2_state_dict.__defaults__[0] == "dinov2_vitl14"
     assert vit_convert.build_vit.__defaults__ == ("cuda",)  # the card unless asked
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_keys_self_similarity_and_attention_maps_match_jax(case, layer):
+    """``keys_self_similarity`` and ``attention_maps`` (f32) within 1e-5 of
+    the JAX functions' largest magnitude; every attention row sums to one
+    (tests/test_misc_utils.py:35)."""
+    cfg, stride, (h, w) = CASES[case]
+    params, model = models(cfg, seed=7 + layer)
+    img = np.random.default_rng(2).random((1, 3, h, w), dtype=np.float32)
+    sim = pvit.keys_self_similarity(model, torch.from_numpy(img), stride, layer)
+    jsim = jvit.keys_self_similarity(params, jnp.asarray(img), jax_cfg(cfg), stride, layer,
+                                     attn_impl="xla")
+    assert_close_to_max(sim, jsim, 1e-5)
+    attn = pvit.attention_maps(model, torch.from_numpy(img), stride, layer)
+    jattn = jvit.attention_maps(params, jnp.asarray(img), jax_cfg(cfg), stride, layer)
+    s = sim.shape[-1]
+    assert attn.shape == (1, cfg.num_heads, s, s) and attn.dtype == torch.float32
+    assert_close_to_max(attn, jattn, 1e-5)
+    np.testing.assert_allclose(attn.sum(-1).numpy(), 1.0, atol=1e-5)
