@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
+    python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -86,23 +87,49 @@ Phases, one line or more each (any failure raises and exits non-zero):
      against CPU: the adaptive sweep with the fused filter, a fixed cap of 64,
      of_filter_best_buddies and compute_bb_ambiguity, each disagreement
      allowed only inside a 1e-5 margin of the CPU's products and distances.
-Each main path (phases 4, 5, 6, 8, 9) runs with every kernel's launch count
-set to 0 just before it and read just after. Then one JSON line with the
-kernels (K2 and K3 counted over phases 6 + 9 and 8 + 9), and last
-{"ok": true, "device": ...}.
+  11. the whole system at full width: a dataset root with two videos, 0 and
+     1, of T=8 PNG frames at 854×476 (textured_video moving (1.5, 0.5) and
+     (-1.0, 0.75) px a frame), phase 9's checkpoints, a train yaml cutting
+     training to 40 iterations (both gates and an async checkpoint at 20,
+     TrainConfig's full width otherwise) and a benchmark pickle (query
+     frames 0 and 5, 64 points each, targets from the known shift, occluded
+     where they leave the frame). cli.run_benchmark.main runs preprocess,
+     train and inference for both videos in this process (K3 in stage 1, K2
+     in the ViT stage, K1-fwd and K1-bwd in every train step, K1-fwd in the
+     refine), then cli.eval_benchmark.main writes the CSV. Checked: both
+     .done markers, state_40.pt, every prediction's shape and finiteness,
+     the CSV against the port's metric functions run again on the saved
+     predictions (every metric NaN or in [0, 1]), the exact launch counts,
+     and that nothing of a video stays on the card: against the memory
+     allocated before video 0 (cuBLAS workspaces cleared), each video leaves
+     at most cuBLAS's workspaces and 16 MiB more, and once they are cleared
+     after the last video at most 16 MiB more. Reuses phase 9's RAFT and ViT
+     checkpoints. Printed per video from the stage timers of utils/profiling
+     (fenced): preprocess, train (ms/iter of the steps alone with the gates
+     off and on; loading the artifacts, the log, the checkpoints and bank
+     rotations apart), the refine and each request, eval, peak memory. With
+     --e2e-frames N alone: one video of N frames, K iterations (default
+     TrainConfig's 10,000, gates at K/2, checkpoints every K/4), a query
+     frame every 5 frames with 256 points each.
+Each main path (phases 4, 5, 6, 8, 9, 11) runs with every kernel's launch
+count set to 0 just before it and read just after. Then one JSON line with
+the kernels (K2 and K3 counted over phases 6 + 9 + 11 and 8 + 9 + 11, K1 over
+4 + 5 + 11), and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
 Imports no JAX, none of the JAX package's modules, and none of PyYAML,
-imageio or msgpack; Pillow for phase 9's PNG frames and the pipeline's mask
-jpgs; PyYAML only through the preprocess CLI's config.
+imageio or msgpack; Pillow for the PNG frames of phases 9 and 11 and the
+pipeline's mask jpgs; PyYAML only through the CLIs' configs.
 """
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import time
@@ -149,6 +176,18 @@ FLOW_TOL, TRAJ_TOL = 1e-4, 1e-4
 # the preprocess CLI's frames at full width; the best-buddy GPU-vs-CPU margin
 PREPROCESS_T = 12
 BB_MARGIN = 1e-5
+# the whole system (phase 11): two videos of T frames moving by different
+# shifts, training cut to 40 iterations (gates and a checkpoint at 20), 64
+# points on each query frame; the device memory left allocated after a video
+# may exceed what was allocated before the first (cuBLAS workspaces aside) by
+# at most E2E_MEMORY_MARGIN bytes (a trained DeltaDINO with its Adam moments
+# is ~80 MB)
+E2E_T, E2E_ITERATIONS, E2E_POINTS = 8, 40, 64
+E2E_QUERY_FRAMES = (0, 5)
+E2E_SHIFTS = ((1.5, 0.5), (-1.0, 0.75))
+E2E_MEMORY_MARGIN = 16 * 2**20
+# steps timed for each bank size by probe_train_banks
+PROBE_STEPS = 20
 
 
 def check(cond, msg):
@@ -1229,29 +1268,43 @@ def phase_raft_reference(dev):
           "GPU and CPU chaining disagree")
 
 
-def write_preprocess_inputs(root, cfg, t, dev):
-    """A frame folder of T PNGs (textured_video at the config's size), the
-    random RAFT-large and ViT weights as .pth checkpoints (the flow head
-    scaled as in phase 8) and a preprocessing yaml that sets max_frames;
-    returns the CLI's arguments."""
+def write_frames(folder, t, h, w, dev, shift=(1.5, 0.5)):
+    """T PNG frames of textured_video (moving by ``shift`` px a frame)."""
     from PIL import Image
-    from dino_tracker_tpu_torch.models import vit
-    h, w = cfg.video_resh, cfg.video_resw
-    folder = os.path.join(root, "vid", "video")
     os.makedirs(folder)
-    frames = (textured_video(t, h, w, dev) * 255).round().byte().permute(0, 2, 3, 1).cpu()
-    for i, frame in enumerate(frames.numpy()):
+    frames = (textured_video(t, h, w, dev, shift) * 255).round().byte().permute(0, 2, 3, 1)
+    for i, frame in enumerate(frames.cpu().numpy()):
         Image.fromarray(frame).save(os.path.join(folder, f"{i:05d}.png"))
+
+
+def write_weights(root, cfg, dev):
+    """The random RAFT-large and ViT weights (phases 8 and 6, the flow head
+    scaled as in phase 8) as .pth checkpoints; returns their two paths."""
+    from dino_tracker_tpu_torch.models import vit
+    os.makedirs(root, exist_ok=True)
     raft_path, vit_path = os.path.join(root, "raft.pth"), os.path.join(root, "vit.pth")
     torch.save({k: v.cpu() for k, v in raft_state(dev, 11).items()}, raft_path)
     vcfg = vit.ViTConfig.for_model(cfg.dino_model_name)
     torch.save({k: v.cpu() for k, v in vit_state(vcfg, dev, 6).items()}, vit_path)
+    return raft_path, vit_path
+
+
+def write_preprocess_yaml(root, cfg):
+    """A preprocessing yaml that sets max_frames; returns its path."""
     config = os.path.join(root, "preprocessing.yaml")
     with open(config, "w") as f:
-        f.write(f"max_frames: {t}\n")
-    return ["--config", config, "--data-path", os.path.join(root, "vid"),
-            "--raft-checkpoint", raft_path, "--dino-checkpoint", vit_path,
-            "--device", str(dev)]
+        f.write(f"max_frames: {cfg.max_frames}\n")
+    return config
+
+
+def write_preprocess_inputs(root, cfg, t, dev):
+    """A frame folder of T PNGs (textured_video at the config's size),
+    write_weights' checkpoints and the yaml; returns the CLI's arguments."""
+    write_frames(os.path.join(root, "vid", "video"), t, cfg.video_resh, cfg.video_resw, dev)
+    raft_path, vit_path = write_weights(root, cfg, dev)
+    return ["--config", write_preprocess_yaml(root, cfg), "--data-path",
+            os.path.join(root, "vid"), "--raft-checkpoint", raft_path,
+            "--dino-checkpoint", vit_path, "--device", str(dev)]
 
 
 def check_bb_artifact(bb, t):
@@ -1277,7 +1330,8 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     """The preprocess CLI in this process on PNG frames and .pth checkpoints
     at full width (dinov2_vitl14, RAFT-large, 854×476, T frames), every
     artifact checked, then 2 training steps on the directory through the
-    port's training data path. Returns the CLI's K2 and K3 launches."""
+    port's training data path. Returns the CLI's K2 and K3 launches and its
+    RAFT and ViT checkpoints' paths."""
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.cli import preprocess
     from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig, feature_grid_size
@@ -1392,7 +1446,8 @@ def phase_preprocess(dev, t=PREPROCESS_T):
           f"{sweep['truncated_pairs']} of {sweep['total_pairs']}; 2 train steps on the "
           f"directory: losses {', '.join(f'{float(v):.4g}' for v in losses[-1].values())}",
           flush=True)
-    return launches
+    return launches, (args[args.index("--raft-checkpoint") + 1],
+                      args[args.index("--dino-checkpoint") + 1])
 
 
 def profile_ambiguity_slab(feats, bb_lib, h, w, stride, rows=8192):
@@ -1557,6 +1612,238 @@ def phase_bb_reference(dev):
           f"(bound {BB_MARGIN})", flush=True)
 
 
+def write_e2e_inputs(root, t, iterations, checkpoint_interval, query_frames, n_points, dev,
+                     shifts, weights=None):
+    """Phase 11's inputs under ``root``: a dataset root ``videos/`` with one
+    video directory per shift (T PNG frames of textured_video), the RAFT and
+    ViT checkpoints ``weights`` (written by write_weights where None), a
+    preprocessing yaml that sets max_frames, ``train.yaml``
+    (``iterations``, both gates at half of them, ``checkpoint_interval``,
+    TrainConfig's full width otherwise) and ``benchmark.pkl`` (``n_points``
+    queries on each query frame, targets from the known shift, occluded
+    where they leave the frame). Returns run_benchmark's arguments, less
+    the claim directory, and the benchmark."""
+    from dino_tracker_tpu_torch.config import PreprocessConfig
+    cfg = PreprocessConfig(max_frames=t)
+    h, w = cfg.video_resh, cfg.video_resw
+    os.makedirs(root)
+    raft_path, vit_path = weights or write_weights(root, cfg, dev)
+    pre_yaml = write_preprocess_yaml(root, cfg)
+    data = os.path.join(root, "videos")
+    rng = np.random.default_rng(8)
+    videos = []
+    for idx, shift in enumerate(shifts):
+        write_frames(os.path.join(data, str(idx), "video"), t, h, w, dev, shift)
+        entry = {"video_idx": idx, "h": h, "w": w, "query_points": {},
+                 "target_points": {}, "occluded": {}}
+        for f in query_frames:
+            q = rng.random((n_points, 2)) * [w - 1, h - 1]
+            tracks = q[:, None] + (np.arange(t) - f)[None, :, None] * np.asarray(shift)
+            entry["query_points"][f] = q.tolist()
+            entry["target_points"][f] = tracks.astype(np.float32)
+            entry["occluded"][f] = ((tracks < 0) | (tracks > [w - 1, h - 1])).any(-1)
+        videos.append(entry)
+    bench = {"videos": videos}
+    pkl = os.path.join(root, "benchmark.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(bench, f)
+    train_yaml = os.path.join(root, "train.yaml")
+    with open(train_yaml, "w") as f:
+        f.write(f"total_iterations: {iterations}\napply_cyc_after: {iterations // 2}\n"
+                f"apply_cl_ref_after: {iterations // 2}\n"
+                f"checkpoint_interval: {checkpoint_interval}\n")
+    return ["--dataset-root-dir", data, "--benchmark-pickle-path", pkl,
+            "--train-config", train_yaml, "--preprocess-config", pre_yaml,
+            "--raft-checkpoint", raft_path, "--dino-checkpoint", vit_path,
+            "--device", str(dev)], bench
+
+
+def check_metrics_csv(path, rows, data, bench, w, h):
+    """The eval CSV: rows 0.., average; each video's numbers the port's metric
+    function run again on the saved predictions, the average their nanmean,
+    empty fields where NaN; every metric NaN or in [0, 1]."""
+    import csv
+    from dino_tracker_tpu_torch.cli import eval_benchmark
+    from dino_tracker_tpu_torch.evaluation import metrics
+    with open(path, newline="") as f:
+        table = list(csv.reader(f))
+    ids = [str(v["video_idx"]) for v in bench["videos"]]
+    check([r[0] for r in table] == ["video_idx", *sorted(ids), "average"],
+          f"CSV rows {[r[0] for r in table]}")
+    again = {vid: metrics.compute_tapvid_metrics_for_video(
+        os.path.join(data, vid, "trajectories"), os.path.join(data, vid, "occlusions"),
+        bench, int(vid), pred_video_sizes=[w, h]) for vid in ids}
+    cols = table[0][1:]
+    check(cols == list(again[ids[0]]), f"CSV columns {cols}")
+    want = {vid: again[vid] for vid in sorted(ids)}
+    want["average"] = {c: eval_benchmark.nanmean([m[c] for m in again.values()]) for c in cols}
+    for row in table[1:]:
+        expect = [eval_benchmark.csv_field(want[row[0]][c]) for c in cols]
+        check(row[1:] == expect, f"CSV row {row[0]}: {row[1:]} != {expect}")
+    check(len(rows) == len(table) - 1, f"eval_benchmark returned {len(rows)} rows")
+    vals = np.asarray([[float(x) if x else np.nan for x in r[1:]] for r in table[1:]])
+    check(bool(np.all(np.isnan(vals) | ((vals >= 0) & (vals <= 1)))),
+          f"a metric outside [0, 1]: {vals}")
+    return want
+
+
+def live_cuda_tensors():
+    """(count, bytes) of the CUDA tensors the garbage collector can reach."""
+    found = [o for o in gc.get_objects() if torch.is_tensor(o) and o.is_cuda]
+    return len(found), sum(o.untyped_storage().nbytes() for o in found)
+
+
+def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_ITERATIONS // 2,
+              query_frames=E2E_QUERY_FRAMES, n_points=E2E_POINTS, shifts=E2E_SHIFTS,
+              weights=None):
+    """The whole system on the card: cli.run_benchmark (preprocess, train,
+    inference for every video, one process) then cli.eval_benchmark, every
+    output checked; ``weights`` are the RAFT and ViT checkpoints to reuse
+    (written anew where None). Returns the launches of K1-fwd, K1-bwd, K2
+    and K3."""
+    from dino_tracker_tpu_torch.cli import eval_benchmark, run_benchmark
+    from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig
+    from dino_tracker_tpu_torch.ops import blurpool as bp
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.utils import profiling
+    pcfg, tcfg = PreprocessConfig(max_frames=t), TrainConfig()
+    h, w = pcfg.video_resh, pcfg.video_resw
+    root = os.path.join(WORK_DIR, "e2e")
+    shutil.rmtree(root, ignore_errors=True)
+    args, bench = write_e2e_inputs(root, t, iterations, checkpoint_interval, query_frames,
+                                   n_points, dev, shifts, weights)
+    data, claims = os.path.join(root, "videos"), os.path.join(root, "claims")
+    csv_path = os.path.join(root, "metrics.csv")
+    # the baseline: what earlier phases left, without cuBLAS's per-handle
+    # workspaces (the caching allocator counts them as allocated)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    launcher = run_benchmark.main(args + ["--claim-dir", claims])
+    run_s = time.perf_counter() - t0
+    launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
+                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+    profiling.reset_stage_timers()
+    t0 = time.perf_counter()
+    rows = eval_benchmark.main(args[:4] + ["--out-file", csv_path, "--pred-w", str(w),
+                                           "--pred-h", str(h)])
+    eval_s = time.perf_counter() - t0
+    eval_report = profiling.stage_report()
+
+    ids = [str(i) for i in range(len(shifts))]
+    n = len(ids)
+    expected = (n * (3 * iterations + 3 * -(-t // 16)), n * 3 * iterations,
+                n * (max(pcfg.dino_layer, pcfg.mask_dino_layer) + 1)
+                * -(-t // pcfg.extract_frames_per_batch),
+                n * pcfg.raft_iters * decode_batches(t))
+    check(launches == expected, f"K1-fwd / K1-bwd / K2 / K3 launched {launches} times "
+          f"in the whole system, expected {expected}")
+    for vid in ids:
+        check(os.path.exists(os.path.join(claims, f"{vid}.done")), f"video {vid} not done")
+        check(vid in launcher.reports, f"no report for video {vid}")
+        check(os.path.exists(os.path.join(data, vid, "models", "dino_tracker",
+                                          f"state_{iterations}.pt")),
+              f"video {vid}: no state_{iterations}.pt")
+        for f in query_frames:
+            trajs = np.load(os.path.join(data, vid, "trajectories", f"trajectories_{f}.npy"))
+            occ = np.load(os.path.join(data, vid, "occlusions", f"occlusion_preds_{f}.npy"))
+            check(trajs.shape == (n_points, t, 2) and np.isfinite(trajs).all()
+                  and occ.shape == (n_points, t),
+                  f"video {vid} frame {f}: {trajs.shape} {occ.shape}")
+    want = check_metrics_csv(csv_path, rows, data, bench, w, h)
+
+    # what stays allocated: after each video, and after the last one without
+    # the cuBLAS workspaces; nothing of a video may stay into the next
+    gc.collect()
+    left = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    cleared = torch.cuda.memory_allocated()
+    workspaces = left - cleared
+    before = [launcher.reports[vid]["allocated_before_bytes"] for vid in ids]
+    after = [launcher.reports[vid]["allocated_after_bytes"] for vid in ids]
+    mib = lambda b: f"{b / 2**20:.1f}"
+    check(before[0] == base, f"{mib(before[0] - base)} MiB allocated between the "
+          f"baseline and video 0")
+    check(cleared - base <= E2E_MEMORY_MARGIN and all(
+        a - base <= workspaces + E2E_MEMORY_MARGIN for a in after),
+          f"device memory carried past a video: baseline {mib(base)} MiB, after each "
+          f"video {[mib(a) for a in after]} MiB, cuBLAS workspaces {mib(workspaces)} MiB, "
+          f"left without them {mib(cleared)} MiB (margin "
+          f"{E2E_MEMORY_MARGIN / 2**20:.0f}); live CUDA tensors (count, bytes) "
+          f"{live_cuda_tensors()}")
+
+    gates_at = iterations // 2
+    for vid in ids:
+        rep = launcher.reports[vid]
+        st = {k: v["total_s"] for k, v in rep["stages"].items()}
+        requests = [st[f"inference/query_frame_{f}"] for f in query_frames]
+        host = {k: st.get(f"train/{k}", 0.0)
+                for k in ("load_data", "init", "log", "checkpoint", "bank_rotation")}
+        steps_s = st["train/steps_gates_off"] + st["train/steps_gates_on"]
+        print(f"e2e: video {vid} (T={t} {w}x{h}, shift {shifts[int(vid)]}): preprocess "
+              f"{st['video/preprocess']:.3f} s (trajectories {st['preprocess/trajectories']:.3f},"
+              f" dino_features {st['preprocess/dino_features']:.3f}, best_buddies "
+              f"{st['preprocess/best_buddies']:.3f}); train {st['video/train']:.3f} s for "
+              f"{iterations} iterations: steps {steps_s:.3f} s "
+              f"({st['train/steps_gates_off'] / gates_at * 1e3:.2f} ms/iter gates off, "
+              f"{st['train/steps_gates_on'] / (iterations - gates_at) * 1e3:.2f} ms/iter "
+              f"gates on), " + ", ".join(f"{k} {v:.3f} s" for k, v in host.items())
+              + f", other {st['video/train'] - steps_s - sum(host.values()):.3f} s; "
+              f"inference {st['video/inference']:.3f} s (load and refine "
+              f"{st['inference/refine']:.3f} s, {len(requests)} requests of {n_points} "
+              f"points: {', '.join(f'{s:.3f}' for s in requests)} s); eval "
+              f"{eval_report[f'eval/{vid}']['total_s']:.3f} s; peak memory "
+              f"{rep['peak_bytes'] / 2**30:.2f} GiB, allocated before "
+              f"{mib(rep['allocated_before_bytes'])} MiB, after "
+              f"{mib(rep['allocated_after_bytes'])} MiB; average_jaccard "
+              f"{want[vid]['average_jaccard']:.4f}, occlusion_accuracy "
+              f"{want[vid]['occlusion_accuracy']:.4f}", flush=True)
+    print(f"e2e: {n} videos, run_benchmark {run_s:.3f} s, eval_benchmark {eval_s:.3f} s; "
+          f"memory allocated: baseline {mib(base)} MiB, after each video "
+          f"{[mib(a) for a in after]} MiB, of which cuBLAS workspaces {mib(workspaces)} MiB; "
+          f"after the last video without them {mib(cleared)} MiB (carried "
+          f"{mib(cleared - base)}, bound {E2E_MEMORY_MARGIN / 2**20:.0f}); live CUDA "
+          f"tensors (count, bytes) {live_cuda_tensors()}; "
+          f"launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 {launches[2]}, "
+          f"K3 {launches[3]}; TrainConfig batch {tcfg.train_batch_size} x "
+          f"{tcfg.batch_n_frames} frames, {tcfg.compute_dtype}", flush=True)
+    return launches
+
+
+def probe_train_banks(dev, data_path):
+    """The train step on a video's own artifacts (TrainConfig's full width),
+    with its trajectory banks whole and with each cut to phase 5's 100,000
+    rows, gates off and on (CUDA events): how much of the steps' time beyond
+    phase 5's the bank size accounts for."""
+    from dino_tracker_tpu_torch import runtime
+    from dino_tracker_tpu_torch.config import TrainConfig
+    from dino_tracker_tpu_torch.training import train
+    from dino_tracker_tpu_torch.training.sampler import TrajectoryBank
+    cfg = TrainConfig()
+    rt = runtime.DINOTrackerRuntime(data_path, cfg, dev)
+    data = rt.load_video_data()
+    cut = lambda b, n: TrajectoryBank(b.coords[:n], b.valid[:n], min(b.count, n))
+    small = data._replace(fg_bank=cut(data.fg_bank, N_FG_TRAJ),
+                          bg_bank=cut(data.bg_bank, N_BG_TRAJ))
+    model = train.Trainer(cfg, rt.tcfg, data, "", seed=2, device=dev).init_model().train()
+    opt, sched = train.make_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ms = {(name, gates): cuda_ms(lambda: train.train_step(
+        model, opt, sched, d, gen, gates, gates, cfg, rt.tcfg), iters=PROBE_STEPS, warmup=3)
+        for gates in (False, True) for name, d in (("whole", data), ("cut", small))}
+    print(f"e2e: train step on video 0's artifacts ({PROBE_STEPS} steps, CUDA events), banks "
+          f"whole ({data.fg_bank.count} fg + {data.bg_bank.count} bg): "
+          f"{ms['whole', False]:.2f} / {ms['whole', True]:.2f} ms gates off / on; cut to "
+          f"{N_FG_TRAJ} + {N_BG_TRAJ}: {ms['cut', False]:.2f} / {ms['cut', True]:.2f} ms; "
+          f"best-buddy slots {data.bb.valid.shape[-1]} (phase 5: {BB_CAP}), features "
+          f"{data.dino_embed.dtype}", flush=True)
+
+
 def build_kernels(sources):
     """nvcc for each (name, module) at once; prints each source's seconds and
     what ptxas reports for its kernels."""
@@ -1579,6 +1866,12 @@ def main():
     ap.add_argument("--preprocess-frames", type=int, default=0,
                     help="run only the K2 and K3 builds and the preprocess CLI at "
                          "this many frames")
+    ap.add_argument("--e2e-frames", type=int, default=0,
+                    help="run only the kernel builds and the whole system on one "
+                         "video of this many frames")
+    ap.add_argument("--e2e-iterations", type=int, default=0,
+                    help="training iterations of --e2e-frames (default: "
+                         "TrainConfig's total_iterations), gates at half of them")
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
@@ -1622,6 +1915,13 @@ def main():
         return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
                    ("corr_lookup.cu", wg)])
+    if args.e2e_frames:  # the whole system alone, one video at DAVIS length
+        from dino_tracker_tpu_torch.config import TrainConfig
+        k = args.e2e_iterations or TrainConfig().total_iterations
+        phase_e2e(dev, args.e2e_frames, k, k // 4, tuple(range(0, args.e2e_frames, 5)),
+                  N_QUERIES, E2E_SHIFTS[:1])
+        probe_train_banks(dev, os.path.join(WORK_DIR, "e2e", "videos", "0"))
+        return
 
     k1 = phase_kernel_check(bp, dev)
     k1_bwd = phase_kernel_bwd_check(bp, dev)
@@ -1635,15 +1935,16 @@ def main():
           f"{vit_launches * k2['ms'] / 1e3:.3f} s, {vit_launches * k2['ms'] / 1e3 / vit_s:.3f} "
           f"of the features' {vit_s:.3f} s", flush=True)
     raft_launches = phase_raft(dev)[0]
-    pre_k2, pre_k3 = phase_preprocess(dev)
+    (pre_k2, pre_k3), weights = phase_preprocess(dev)
     phase_train_reference(dev)
     phase_reference(dev)
     phase_vit_reference(dev)
     phase_raft_reference(dev)
     phase_bb_reference(dev)
+    e2e = phase_e2e(dev, weights=weights)
 
     # launches: the sum of the main-path runs (K2 and K3 also the preprocess
-    # CLI's), each counted from 0; K1 ms /
+    # CLI's, every kernel also the whole system's), each counted from 0; K1 ms /
     # plain_ms / bound_ms: the sum over its three bf16 shapes; K2's at the
     # ViT stage's shape; K3's at one decode batch's
     def entry(name, source, replaces, launches, numbers):
@@ -1654,13 +1955,15 @@ def main():
     print(json.dumps({"kernels": [
         entry("blurpool_down_nhwc", "blurpool.cu",
               "dino_tracker_tpu/ops/blurpool.py:59",
-              infer_launches + train_launches[0], k1),
+              infer_launches + train_launches[0] + e2e[0], k1),
         entry("blurpool_up_nhwc", "blurpool.cu",
-              "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1], k1_bwd),
+              "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1] + e2e[1], k1_bwd),
         entry("flash_attention", "flash_attention.cu",
-              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches + pre_k2, k2),
+              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches + pre_k2 + e2e[2],
+              k2),
         entry("corr_lookup", "corr_lookup.cu",
-              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches + pre_k3, k3)]}))
+              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches + pre_k3 + e2e[3],
+              k3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

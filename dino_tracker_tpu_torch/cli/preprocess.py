@@ -33,20 +33,11 @@ def main(argv=None):
 
     import torch
     from ..config import PreprocessConfig
-    from ..models import raft, vit_convert
     from ..preprocessing.pipeline import PreprocessingPipeline
 
-    cfg = PreprocessConfig.from_yaml(args.config)
-    dev = torch.device(args.device)
-    model = None
-    if args.raft_checkpoint:
-        model = raft.load_raft_state_dict(args.raft_checkpoint, dev)
-    vit = None
-    if args.dino_checkpoint:
-        state, vcfg = vit_convert.load_dinov2_state_dict(args.dino_checkpoint,
-                                                         cfg.dino_model_name)
-        vit = vit_convert.build_vit(state, vcfg, dev)
-    pipe = PreprocessingPipeline(args.data_path, cfg, vit=vit, device=dev, raft=model)
+    pipe = PreprocessingPipeline.from_checkpoints(
+        args.data_path, PreprocessConfig.from_yaml(args.config), args.raft_checkpoint,
+        args.dino_checkpoint, torch.device(args.device))
     pipe.run()
     return pipe
 

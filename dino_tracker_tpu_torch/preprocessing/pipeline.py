@@ -21,7 +21,8 @@ the two packages read each other's files. Feature videos are cast to the
 store dtype (f16) on the device and written from a background thread; a
 writer failure is re-raised by ``join_saves``. ``timings`` holds the host
 seconds of each stage (under the JAX package's stage names) and phase, each
-ending in a device sync.
+ending in a device sync; ``run()`` also records its stages in the process-wide
+stage timers of ``utils/profiling.py`` and logs their report.
 """
 
 from __future__ import annotations
@@ -38,10 +39,12 @@ import numpy as np
 import torch
 
 from ..config import PreprocessConfig, add_config_paths
-from ..models.raft import RAFT
+from ..models import vit_convert
+from ..models.raft import RAFT, load_raft_state_dict
 from ..models.vit import VisionTransformer, extract_feature_video
 from ..structures import save_bb_data
 from ..utils import video_io
+from ..utils.profiling import dump_stage_report, stage_timer
 from . import best_buddies as bb_lib
 from . import fg_mask as fg_lib
 from . import split_fg_bg as split_lib
@@ -63,6 +66,23 @@ class PreprocessingPipeline:
     # T×3×H×W frames in [0, 1]; when None they are read from the video folder
     frames: Optional[torch.Tensor] = None
     raft: Optional[RAFT] = None  # on ``device``
+
+    @classmethod
+    def from_checkpoints(cls, data_path: str, cfg: PreprocessConfig,
+                         raft_checkpoint: Optional[str] = None,
+                         dino_checkpoint: Optional[str] = None,
+                         device: torch.device = torch.device("cuda")):
+        """The pipeline with its weights loaded onto ``device`` from a
+        princeton-vl RAFT checkpoint and a DINOv2 state-dict checkpoint
+        (either may be None: the stages that need it then raise)."""
+        model = vit = None
+        if raft_checkpoint:
+            model = load_raft_state_dict(raft_checkpoint, device)
+        if dino_checkpoint:
+            state, vcfg = vit_convert.load_dinov2_state_dict(dino_checkpoint,
+                                                             cfg.dino_model_name)
+            vit = vit_convert.build_vit(state, vcfg, device)
+        return cls(data_path, cfg, vit=vit, device=device, raft=model)
 
     def __post_init__(self):
         self.paths = add_config_paths(self.data_path)
@@ -247,7 +267,8 @@ class PreprocessingPipeline:
         cfg, paths = self.cfg, self.paths
 
         def stage(name, fn):
-            return self._timed(f"preprocess/{name}", fn)
+            with stage_timer(f"preprocess/{name}"):
+                return self._timed(f"preprocess/{name}", fn)
 
         if cfg.filter_using_direct_flow:
             trajs, unfiltered = stage("trajectories", self.extract_trajectories_both)
@@ -281,8 +302,7 @@ class PreprocessingPipeline:
         logger.info("saved %s: %s", paths["unfiltered_trajectories_file"], unfiltered.shape)
         stage("best_buddies", lambda: self.compute_best_buddies(feats, unfiltered))
         self.join_saves()
-        logger.info("stage timing report:\n%s", "\n".join(
-            f"  {name}: {s:.3f} s" for name, s in self.timings.items()))
+        logger.info("stage timing report:\n%s", dump_stage_report())
 
     def join_saves(self):
         """Block until every async artifact write has landed; re-raise the

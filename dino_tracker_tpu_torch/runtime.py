@@ -36,6 +36,7 @@ from .training import checkpoint as ckpt_lib
 from .training import train as train_lib
 from .training.sampler import BankRotator, build_bank
 from .utils import video_io
+from .utils.profiling import stage_timer
 
 logger = logging.getLogger(__name__)
 
@@ -138,8 +139,10 @@ class DINOTrackerRuntime:
 
     def train(self) -> tracker_lib.Tracker:
         """Train (or resume) this video's model; checkpoints go to
-        ``models/dino_tracker/state_<step>.pt``."""
-        data = self.load_video_data()
+        ``models/dino_tracker/state_<step>.pt``. Loading the artifacts is
+        a stage timer (``train/load_data``), fenced on the device."""
+        with stage_timer("train/load_data", fence=self.device):
+            data = self.load_video_data()
         return train_lib.Trainer(
             cfg=self.cfg, tcfg=self.tcfg, data=data,
             ckpt_folder=self.paths["ckpt_folder"], seed=self.seed,
@@ -167,8 +170,11 @@ class DINOTrackerRuntime:
     def infer_benchmark(self, benchmark_pickle_path: str, video_id: int,
                         step: Optional[int] = None, chunk: int = 4096):
         """Per-query-frame trajectory/occlusion predictions saved as .npy
-        (reference inference_benchmark.py:13-41)."""
-        mi = self.get_model_inference(step, chunk)
+        (reference inference_benchmark.py:13-41). The refine and each query
+        frame's request are stage timers (``inference/refine``,
+        ``inference/query_frame_<f>``), fenced on the device."""
+        with stage_timer("inference/refine", fence=self.device):
+            mi = self.get_model_inference(step, chunk)
         qp = get_query_points_from_benchmark_config(
             benchmark_pickle_path, video_id,
             rescale_sizes=[self.cfg.video_resw, self.cfg.video_resh])
@@ -176,7 +182,8 @@ class DINOTrackerRuntime:
         os.makedirs(self.paths["occlusions_dir"], exist_ok=True)
         for frame_idx in sorted(qp.keys()):
             pts = np.asarray(qp[frame_idx], np.float32)
-            trajs, occ = mi.infer(pts)
+            with stage_timer(f"inference/query_frame_{frame_idx}", fence=self.device):
+                trajs, occ = mi.infer(pts)
             np.save(os.path.join(self.paths["trajectories_dir"],
                                  f"trajectories_{frame_idx}.npy"), trajs)
             np.save(os.path.join(self.paths["occlusions_dir"],

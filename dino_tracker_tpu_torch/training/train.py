@@ -19,6 +19,7 @@ fields).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import NamedTuple, Optional
@@ -28,6 +29,7 @@ import torch
 from ..config import TrackerConfig
 from ..models import tracker
 from ..structures import BBData
+from ..utils.profiling import stage_timer
 from . import checkpoint as ckpt_lib
 from . import contrastive, cycle, losses
 from .sampler import TrajectoryBank, TrainSample, resolve_fg_batch, sample_batch
@@ -158,10 +160,23 @@ def train_state(model, opt, sched, generator, step: int) -> dict:
             "step": step}
 
 
+def steps_stage(cyc: bool, cl_ref: bool) -> str:
+    """The stage-timer name (``utils/profiling.py``) of a run of training
+    steps under these phase gates."""
+    if cyc == cl_ref:
+        return f"train/steps_gates_{'on' if cyc else 'off'}"
+    return f"train/steps_{'cycle' if cyc else 'cl_ref'}_on"
+
+
 @dataclasses.dataclass
 class Trainer:
     """Per-video training driver: phase gates, logging, checkpointing and
-    resume, trajectory-bank rotation (reference dino_tracker.py:392-448)."""
+    resume, trajectory-bank rotation (reference dino_tracker.py:392-448).
+    Stage timers, fenced on the device: the model's init or resume
+    (``train/init``), the steps under each set of gates (``steps_stage``),
+    and apart from them the log's metric reads (``train/log``), the
+    checkpoints' snapshots and the final save (``train/checkpoint``) and the
+    bank rotations (``train/bank_rotation``)."""
 
     cfg: object  # config.TrainConfig, or any object with its fields
     tcfg: TrackerConfig
@@ -180,43 +195,60 @@ class Trainer:
 
     def train(self, log_interval: int = 100) -> tracker.Tracker:
         cfg = self.cfg
-        model = self.init_model().train()
-        opt, sched = make_optimizer(model, cfg)
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        state, i = ckpt_lib.load_latest(self.ckpt_folder, map_location="cpu")
-        if state is not None:
-            model.load_state_dict(state["model"])
-            opt.load_state_dict(state["optimizer"])
-            sched.load_state_dict(state["scheduler"])
-            generator.set_state(state["generator"])
-            logger.info("resumed from iter %d", i)
+        with stage_timer("train/init", fence=self.device):
+            model = self.init_model().train()
+            opt, sched = make_optimizer(model, cfg)
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            state, i = ckpt_lib.load_latest(self.ckpt_folder, map_location="cpu")
+            if state is not None:
+                model.load_state_dict(state["model"])
+                opt.load_state_dict(state["optimizer"])
+                sched.load_state_dict(state["scheduler"])
+                generator.set_state(state["generator"])
+                logger.info("resumed from iter %d", i)
         i = max(i, 0)
 
         running, running_n = {}, 0
         saver = ckpt_lib.AsyncSaver()
+        steps, gates = contextlib.ExitStack(), None  # the open timer of a run of steps
         while i < cfg.total_iterations:
-            metrics = train_step(model, opt, sched, self.data, generator,
-                                 i >= cfg.apply_cyc_after,
-                                 i >= cfg.apply_cl_ref_after, cfg, self.tcfg)
+            on = (i >= cfg.apply_cyc_after, i >= cfg.apply_cl_ref_after)
+            if on != gates:
+                steps.close()
+                steps.enter_context(stage_timer(steps_stage(*on), fence=self.device))
+                gates = on
+            metrics = train_step(model, opt, sched, self.data, generator, *on,
+                                 cfg, self.tcfg)
             for k, v in metrics.items():
                 running[k] = running.get(k, 0.0) + v
             running_n += 1
             i += 1
-            if i % log_interval == 0:
-                logger.info("iter %d: %s", i, {
-                    k: float(v) / running_n for k, v in running.items()})
+            log = i % log_interval == 0
+            save = i % cfg.checkpoint_interval == 0 and i < cfg.total_iterations
+            rotate = (self.bank_rotator is not None
+                      and i % cfg.sampler_batch_iterations == 0
+                      and i < cfg.total_iterations)
+            if log or save or rotate:  # host work, timed apart from the steps
+                steps.close()
+                gates = None
+            if log:
+                with stage_timer("train/log", fence=self.device):
+                    logger.info("iter %d: %s", i, {
+                        k: float(v) / running_n for k, v in running.items()})
                 running, running_n = {}, 0
-            if i % cfg.checkpoint_interval == 0 and i < cfg.total_iterations:
-                saver.save(self.ckpt_folder,
-                           train_state(model, opt, sched, generator, i), i)
-            if (self.bank_rotator is not None
-                    and i % cfg.sampler_batch_iterations == 0
-                    and i < cfg.total_iterations):
-                fg_bank, bg_bank = self.bank_rotator.advance()
-                self.data = self.data._replace(fg_bank=fg_bank, bg_bank=bg_bank)
-        saver.join()  # every interval save landed (or its failure raises)
-        ckpt_lib.save_state(self.ckpt_folder,
-                            train_state(model, opt, sched, generator,
-                                        cfg.total_iterations),
-                            cfg.total_iterations)
+            if save:
+                with stage_timer("train/checkpoint", fence=self.device):
+                    saver.save(self.ckpt_folder,
+                               train_state(model, opt, sched, generator, i), i)
+            if rotate:
+                with stage_timer("train/bank_rotation", fence=self.device):
+                    fg_bank, bg_bank = self.bank_rotator.advance()
+                    self.data = self.data._replace(fg_bank=fg_bank, bg_bank=bg_bank)
+        steps.close()
+        with stage_timer("train/checkpoint", fence=self.device):
+            saver.join()  # every interval save landed (or its failure raises)
+            ckpt_lib.save_state(self.ckpt_folder,
+                                train_state(model, opt, sched, generator,
+                                            cfg.total_iterations),
+                                cfg.total_iterations)
         return model

@@ -5,8 +5,10 @@ The port's own copy of the functions it needs from
 packages read a folder to the same bits: sorted jpg/png frames, LANCZOS
 resize through the native loader (``native_io``) or else Pillow, [0, 1]
 floats T×3×H×W; grayscale masks with a floor-index nearest resize; mask
-frames written as jpgs with Pillow. Pillow is imported inside the functions,
-so the modules that import this one need no image library.
+frames written as jpgs with Pillow; videos written as mp4 with OpenCV and
+video files read into frame folders with imageio. Each image library is
+imported inside the functions, so the modules that import this one need
+none.
 """
 
 from __future__ import annotations
@@ -87,6 +89,36 @@ def save_video_frames(video: np.ndarray, folder: str):
     for idx, frame in enumerate(video):
         Image.fromarray(np.squeeze(frame)).save(path / f"{idx:05d}.jpg")
     return path
+
+
+def save_video(video_thwc: np.ndarray, output_path: str, fps: int = 30):
+    """Save a T×H×W×3 uint8 (RGB) video as mp4 with OpenCV's writer (the
+    JAX package's ``save_video``)."""
+    import cv2
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    h, w = video_thwc.shape[1:3]
+    writer = cv2.VideoWriter(output_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (w, h))
+    try:
+        for frame in video_thwc:
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    finally:
+        writer.release()
+
+
+def mp4_to_frames(mp4_file: str, output_folder: str):
+    """Every frame of a video file as ``<output_folder>/<i:05d>.jpg``, read
+    and written with imageio as the JAX package does (its ``mp4_to_frames``),
+    so both write the same bytes."""
+    try:
+        import imageio
+    except ImportError as e:
+        raise ImportError("mp4_to_frames needs the imageio package (with an mp4 "
+                          "reader such as imageio-ffmpeg) to read videos") from e
+    os.makedirs(output_folder, exist_ok=True)
+    with imageio.get_reader(mp4_file) as vid:
+        for i, frame in enumerate(vid):
+            imageio.imwrite(os.path.join(output_folder, f"{i:05d}.jpg"), frame)
 
 
 def get_grid_query_points(res_h_w: Tuple[int, int], segm_mask: Optional[np.ndarray] = None,

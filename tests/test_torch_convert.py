@@ -87,7 +87,10 @@ PORT_MODULES = ('runtime', 'cli.train', 'structures', 'training.train',
                 'utils.video_io', 'utils.native_io', 'evaluation.tapvid',
                 'models.raft', 'ops.window_gather', 'preprocessing.flow',
                 'preprocessing.trajectories', 'utils.native_traj',
-                'preprocessing.best_buddies', 'ops.nms', 'cli.preprocess')
+                'preprocessing.best_buddies', 'ops.nms', 'cli.preprocess',
+                'parallel.launcher', 'cli.run_benchmark', 'cli.eval_benchmark',
+                'evaluation.metrics', 'utils.profiling', 'visualization.viz',
+                'cli.visualize', 'cli.mp4_to_frames')
 
 
 def test_port_imports_no_jax():
@@ -137,7 +140,8 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
     repo's train config, maps the path contract, loads a frame folder and
     chains trajectories (RAFT, flow engine, chaining and the native
     occupancy update imported) and runs the best-buddy sweep and its
-    ambiguity pass (the preprocess CLI imported)."""
+    ambiguity pass (the preprocess CLI imported), and imports every module
+    of ``PORT_MODULES``."""
     from PIL import Image
     frames = tmp_path / "vid" / "video"
     frames.mkdir(parents=True)
@@ -172,10 +176,13 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
         "feats = torch.eye(35)[:, :16].T.reshape(1, 16, 5, 7).repeat(2, 1, 1, 1)\n"
         "bb = best_buddies.extract_best_buddies(feats, 42, 56)\n"
         "bb = best_buddies.compute_bb_ambiguity(bb, feats, 42, 56)\n"
-        "print(int(bb.valid.sum()), bb.capacity)\n")
+        "print(int(bb.valid.sum()), bb.capacity)\n"
+        "import importlib\n"
+        f"mods = {PORT_MODULES!r}\n"
+        "print(len([importlib.import_module(f'dino_tracker_tpu_torch.{m}') for m in mods]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[:3] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
-                                          "(42, 3, 2)", "32 35"]
+    assert out.stdout.split("\n")[:4] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
+                                          "(42, 3, 2)", "32 35", str(len(PORT_MODULES))]

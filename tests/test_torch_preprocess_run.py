@@ -182,15 +182,12 @@ def test_run_needs_weights(tmp_path, weights):
             pipe.run()
 
 
-def test_preprocess_cli_then_train_cli(tmp_path, weights):
-    """``cli.preprocess --device cpu`` on checkpoints written here (a
-    princeton-vl RAFT ``.pth`` and a DINOv2 ViT-S/14 ``.pth``) writes every
-    artifact; ``cli.train`` trains on the directory; ``--devices 2`` is
-    refused."""
-    params = weights[0]
-    root = video_dir(tmp_path)
+def write_checkpoints_and_config(tmp_path, raft_params):
+    """A princeton-vl RAFT ``.pth`` of ``raft_params``, a seeded DINOv2
+    ViT-S/14 ``.pth`` and a preprocessing yaml of ``SETTINGS`` under
+    ``tmp_path``; returns (raft path, ViT path, yaml path)."""
     raft_path, vit_path = str(tmp_path / "raft.pth"), str(tmp_path / "vits14.pth")
-    torch.save({f"module.{k}": v for k, v in praft.raft_state_from_jax(params).items()},
+    torch.save({f"module.{k}": v for k, v in praft.raft_state_from_jax(raft_params).items()},
                raft_path)
     vits = pvit.ViTConfig.for_model("dinov2_vits14")
     torch.save({k: torch.from_numpy(v) for k, v in dinov2_state_dict(vits, 23).items()},
@@ -199,6 +196,29 @@ def test_preprocess_cli_then_train_cli(tmp_path, weights):
     with open(config, "w") as f:
         f.write("".join(f"{k}: {v}\n" for k, v in SETTINGS.items())
                 + "dino_model_name: dinov2_vits14\nmask_dino_model_name: dinov2_vits14\n")
+    return raft_path, vit_path, config
+
+
+def write_train_config(path, iterations=2, gates_after=1, checkpoint_interval=2):
+    """A train yaml at the tiny video's size for the ViT-S/14 features."""
+    with open(path, "w") as f:
+        f.write(f"video_resh: {H}\nvideo_resw: {W}\n"
+                "dino_model_name: dinov2_vits14\ncompute_dtype: float32\n"
+                f"total_iterations: {iterations}\ncheckpoint_interval: {checkpoint_interval}\n"
+                f"apply_cyc_after: {gates_after}\napply_cl_ref_after: {gates_after}\n"
+                "train_batch_size: 16\nbatch_n_frames: 3\n"
+                "cyc_n_frames: 2\ncyc_batch_size_per_frame: 8\n"
+                "cl_n_frames: 2\ncl_points_per_pair: 16\n")
+    return str(path)
+
+
+def test_preprocess_cli_then_train_cli(tmp_path, weights):
+    """``cli.preprocess --device cpu`` on checkpoints written here (a
+    princeton-vl RAFT ``.pth`` and a DINOv2 ViT-S/14 ``.pth``) writes every
+    artifact; ``cli.train`` trains on the directory; ``--devices 2`` is
+    refused."""
+    root = video_dir(tmp_path)
+    raft_path, vit_path, config = write_checkpoints_and_config(tmp_path, weights[0])
     args = ["--config", config, "--data-path", root, "--raft-checkpoint", raft_path,
             "--dino-checkpoint", vit_path, "--device", "cpu"]
     with pytest.raises(SystemExit):
@@ -213,14 +233,6 @@ def test_preprocess_cli_then_train_cli(tmp_path, weights):
     for name in ("bb_truncation.json", "dino_best_buddies_filtered.npz"):
         assert os.path.exists(bb_path(pipe.paths, name))
 
-    train_yaml = str(tmp_path / "train.yaml")
-    with open(train_yaml, "w") as f:
-        f.write(f"video_resh: {H}\nvideo_resw: {W}\n"
-                "dino_model_name: dinov2_vits14\ncompute_dtype: float32\n"
-                "total_iterations: 2\ncheckpoint_interval: 2\n"
-                "apply_cyc_after: 1\napply_cl_ref_after: 1\n"
-                "train_batch_size: 16\nbatch_n_frames: 3\n"
-                "cyc_n_frames: 2\ncyc_batch_size_per_frame: 8\n"
-                "cl_n_frames: 2\ncl_points_per_pair: 16\n")
+    train_yaml = write_train_config(tmp_path / "train.yaml")
     train_cli.main(["--config", train_yaml, "--data-path", root, "--device", "cpu"])
     assert ckpt.checkpoint_steps(os.path.join(root, "models", "dino_tracker")) == [2]

@@ -351,6 +351,28 @@ def test_resume_is_exact(tmp_path):
                            .state_dict()["tracker_head.conv1.weight"])
 
 
+def test_trainer_times_host_work_apart_from_the_steps(tmp_path):
+    """The Trainer's stage timers: a run of steps under the same gates is cut
+    where the log, a checkpoint or a bank rotation runs, and those are timed
+    on their own. 4 steps, gates at 2, log every 2, a checkpoint at 3 (and
+    the last at 4), a rotation at 2."""
+    from dino_tracker_tpu_torch.utils import profiling
+    arrays = video_arrays(4)
+    trainer = tiny_trainer(tmp_path, 4, arrays)
+    trainer.cfg = dataclasses.replace(trainer.cfg, checkpoint_interval=3,
+                                      sampler_batch_iterations=2)
+    trainer.bank_rotator = sampler.BankRotator(*arrays[3], window=100)
+    profiling.reset_stage_timers()
+    try:
+        trainer.train(log_interval=2)
+        calls = {k: v["calls"] for k, v in profiling.stage_report().items()}
+    finally:
+        profiling.reset_stage_timers()
+    assert calls == {"train/init": 1, "train/steps_gates_off": 1, "train/steps_gates_on": 2,
+                     "train/log": 2, "train/checkpoint": 2, "train/bank_rotation": 1}
+    assert ckpt.checkpoint_steps(str(tmp_path)) == [4, 3]
+
+
 def test_checkpoint_atomic_and_falls_back_past_truncated(tmp_path):
     state = {"model": {"w": torch.arange(6.0)}, "step": 5}
     good = ckpt.save_state(str(tmp_path), state, 5)
