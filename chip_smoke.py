@@ -5,6 +5,8 @@
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
+    python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
+                                             # cuda:1, one video preprocessed, phase 12
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -111,10 +113,29 @@ Phases, one line or more each (any failure raises and exits non-zero):
      --e2e-frames N alone: one video of N frames, K iterations (default
      TrainConfig's 10,000, gates at K/2, checkpoints every K/4), a query
      frame every 5 frames with 256 points each.
-Each main path (phases 4, 5, 6, 8, 9, 11) runs with every kernel's launch
-count set to 0 just before it and read just after. Then one JSON line with
-the kernels (K2 and K3 counted over phases 6 + 9 + 11 and 8 + 9 + 11, K1 over
-4 + 5 + 11), and last {"ok": true, "device": ...}.
+  12. multi-device (parallel/mesh.py): with two or more cards, K1-fwd,
+     K1-bwd, K2 and K3 launched on cuda:1 from this process (cuda:0 current),
+     each against its plain version (one card: a line says it did not run).
+     Then cli.train and cli.inference_benchmark with --devices 2
+     --share-device (two ranks on the one card over gloo) and with --devices
+     1, on copies of phase 11's video 0 (T=8 at 854x476, TrainConfig's full
+     width, 40 iterations, gates at 20), both inference runs serving the
+     2-rank checkpoint; checked: the checkpoints, every rank's exact K1
+     launches, trajectories within 1e-3 px and equal occlusion flags. Then
+     the train step on 2 ranks against one device (run twice, for the card's
+     own spread): f32 from the Trainer's init (losses 1e-5 relative plus
+     1e-7, gradients 1e-4 of each tensor's max, BN statistics 1e-6), bf16
+     from seeded non-zero weights (sign and scale: losses 2e-2 of their
+     scale, gradients 0.35 of max), replicas bitwise equal after 3 bf16
+     steps; the refine's 265.7 MB gather and its backward's all-reduce timed.
+     Printed: each rank's ms/iter with the gates off and on, the slowest
+     rank's, launches and peak memory, with the card's name and power limit.
+     With --mesh-devices N alone: N ranks, one card each, over NCCL.
+Each main path (phases 4, 5, 6, 8, 9, 11, 12) runs with every kernel's
+launch count set to 0 just before it and read just after (phase 12's ranks
+start from 0 in their own processes and report their counts). Then one JSON
+line with the kernels (K2 and K3 counted over phases 6 + 9 + 11 and 8 + 9 +
+11, K1 over 4 + 5 + 11 + 12), and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -188,6 +209,16 @@ E2E_SHIFTS = ((1.5, 0.5), (-1.0, 0.75))
 E2E_MEMORY_MARGIN = 16 * 2**20
 # steps timed for each bank size by probe_train_banks
 PROBE_STEPS = 20
+# phase 12: ranks of the default run (sharing the one card), the step's
+# equality gates against one device (loss rtol, gradient share of each
+# tensor's max; bf16: the sign-and-scale rule), the null gradient, the
+# inference bound and the bf16 steps after which ranks must be equal
+MESH_RANKS = 2
+MESH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 0.35)}
+MESH_NULL_GRADS = {"tracker_head.conv2.bias"}
+MESH_PX_TOL = 1e-3
+MESH_REPLICA_STEPS = 3
+MESH_TIMED_STEPS = 5  # warm bf16 steps timed under each set of gates
 
 
 def check(cond, msg):
@@ -209,6 +240,11 @@ def reset_counts():
     bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
     fa.flash_attention_cuda.launches = 0
     wg.corr_lookup_cuda.launches = 0
+
+
+def fence(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -1844,6 +1880,321 @@ def probe_train_banks(dev, data_path):
           f"{data.dino_embed.dtype}", flush=True)
 
 
+def phase_other_card(bp, other):
+    """K1-fwd, K1-bwd, K2 and K3 launched on ``other`` (cuda:1) from this
+    process, whose current device stays cuda:0, each against its plain
+    version on that card: every wrapper launches under its tensor's device
+    guard (ops/_guard.py)."""
+    from dino_tracker_tpu_torch.ops import attention
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    check(torch.cuda.current_device() == 0, "cuda:0 is not the current device")
+    g = torch.Generator(device=other).manual_seed(21)
+    errs = {}
+    x = torch.randn(TRAIN_SHAPES[0], generator=g, device=other).bfloat16().requires_grad_()
+    y = bp.blurpool_cuda(x)
+    gy = torch.randn(y.shape, generator=g, device=other).bfloat16()
+    (gx,) = torch.autograd.grad(y, x, gy)
+    xr = x.detach().clone().requires_grad_()
+    yr = bp.blurpool_reference(xr)
+    (gxr,) = torch.autograd.grad(yr, xr, gy)
+    errs["K1-fwd"] = ((y.float() - yr.float()).abs().max().item(), bf16_ulp(yr.float()))
+    errs["K1-bwd"] = ((gx.float() - gxr.float()).abs().max().item(), bf16_ulp(gxr.float()))
+    del x, y, gy, gx, xr, yr, gxr
+    q, k, v = qkv_views((1, 16, 2048, 64), g, other)
+    out = fa.flash_attention_cuda(q, k, v, ATTN_SCALE).float()
+    ref = attention.attention_reference(q.float(), k.float(), v.float(), ATTN_SCALE)
+    errs["K2"] = ((out - ref).abs().max().item(), BF16_ATTN_TOL * ref.abs().max().item())
+    del q, k, v, out, ref
+    pyramid, coords = lookup_inputs(other, *LOOKUP_SHAPE, seed=22)
+    out = wg.corr_lookup_cuda(pyramid, coords)
+    ref = wg.corr_lookup_reference(pyramid, coords)
+    errs["K3"] = ((out - ref).abs().max().item(), LOOKUP_TOL * ref.abs().max().item())
+    torch.cuda.synchronize(other)
+    del pyramid, coords, out, ref
+    check(torch.cuda.current_device() == 0, "a launch changed the current device")
+    print(f"other card: K1-fwd, K1-bwd, K2, K3 launched on {other} while cuda:0 is "
+          f"current: " + ", ".join(f"{name} max_abs_err {e:.3g} (bound {b:.3g})"
+                                   for name, (e, b) in errs.items()), flush=True)
+    check(all(e <= b for e, b in errs.values()), f"a kernel on {other} disagrees "
+          f"with its plain version: {errs}")
+
+
+def mesh_equality(mesh, data_path, train_yaml, device_type="cuda"):
+    """On every rank (``mesh`` None: one device): the train step on the
+    directory's artifacts at ``train_yaml``'s widths (TrainConfig's full
+    width in phase 12), gates on, in f32 and in bf16 -> the losses and
+    gradients summed over the ranks and the new BN statistics; then
+    MESH_REPLICA_STEPS steps of the bf16 default across the phase boundary
+    -> the model state and the generator state; with a mesh, the times of
+    the refine's gather and of its backward's all-reduce at the training
+    shape. f32 starts from the Trainer's own initialisation (seed 2), whose
+    zero last DeltaDINO layer keeps the earlier layers' gradients exactly
+    zero: at full width some pre-activation lies within f32 rounding of a
+    ReLU's kink, lands on either side in two valid orders of summation and
+    moves a gradient by its whole cotangent, so a 1e-4 bound on those layers
+    would not hold even between two orders on one device. bf16 and the
+    replica steps start from non-zero seeded weights, so every layer's
+    gradient and BN's backward over the ranks are held (bf16: to sign and
+    scale)."""
+    from dino_tracker_tpu_torch import runtime
+    from dino_tracker_tpu_torch.config import TrainConfig
+    from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+    from dino_tracker_tpu_torch.training import train
+    from dino_tracker_tpu_torch.training.sampler import sample_batch
+    dev = mesh.device if mesh is not None else torch.device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    data = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(TrainConfig.from_yaml(train_yaml), compute_dtype=dtype)
+        rt = runtime.DINOTrackerRuntime(data_path, cfg, dev, mesh=mesh)
+        data = data if data is not None else rt.load_video_data()
+        channels = rt.tcfg.delta_channels
+        if dtype == "float32":
+            model = train.Trainer(cfg, rt.tcfg, data, "", seed=2, device=dev
+                                  ).init_model().train()
+        else:
+            model = build_model(*jax_layout_weights(np.random.default_rng(9), channels,
+                                                    0.1), rt.tcfg, dev).train()
+        gen = torch.Generator(device=dev).manual_seed(2)
+        sample = sample_batch(gen, data.fg_bank, data.bg_bank, cfg.train_batch_size,
+                              cfg.batch_n_frames, cfg.fg_traj_ratio, data.video.shape[0],
+                              cfg.video_resw, cfg.video_resh)
+        total, metrics = train.step_losses(model, data, sample, gen, cfg, rt.tcfg, True,
+                                           True, mesh=mesh)
+        total.backward()
+        mesh_lib.all_reduce_grads(model, mesh)
+        metrics = train.reduce_metrics(metrics, mesh)
+        out[dtype] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                          grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                                 if p.grad is not None},
+                          buffers={n: b.cpu() for n, b in model.named_buffers()})
+        del model, total
+    model = build_model(*jax_layout_weights(np.random.default_rng(9), channels, 0.1),
+                        rt.tcfg, dev).train()
+    opt, sched = train.make_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(MESH_REPLICA_STEPS):
+        train.train_step(model, opt, sched, data, gen, i >= 1, i >= 1, cfg, rt.tcfg, mesh)
+    out["replica"] = dict(state={k: v.cpu() for k, v in model.state_dict().items()},
+                          generator=gen.get_state())
+    # warm steps (the CLI's timers include each segment's first steps: the
+    # collectives' set-up, the first allocations)
+    for gates in (False, True):
+        fence(dev)
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_STEPS):
+            train.train_step(model, opt, sched, data, gen, gates, gates, cfg, rt.tcfg, mesh)
+        fence(dev)
+        out[f"warm_ms_{'on' if gates else 'off'}"] = (
+            (time.perf_counter() - t0) * 1e3 / MESH_TIMED_STEPS)
+    del model, opt
+    if mesh is not None:  # the refine's gather (forward) and all-reduce (backward)
+        import torch.distributed as dist
+        n = 2 * cfg.batch_n_frames
+        x = torch.randn((mesh_lib.split_sizes(n, mesh.world_size)[mesh.rank],
+                         *rt.tcfg.feat_hw, channels[-1]), device=dev)
+        full = torch.randn((n, *rt.tcfg.feat_hw, channels[-1]), device=dev)
+
+        def timed(fn, iters=5):
+            fn()
+            fence(dev)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            fence(dev)
+            return (time.perf_counter() - t0) * 1e3 / iters
+
+        out["gather_ms"] = timed(lambda: mesh_lib.all_gather_rows(x, mesh, n))
+        out["all_reduce_ms"] = timed(lambda: dist.all_reduce(full, group=mesh.group))
+        out["gather_bytes"] = full.numel() * full.element_size()
+    return out
+
+
+def rank_line(reports, gates_at, iterations):
+    """ms/iter with the gates off and on, launches and peak memory of each
+    rank's report."""
+    parts = []
+    for r, rep in enumerate(reports):
+        st = rep["stages"]
+        ms = lambda k, n: st[k]["total_s"] / n * 1e3 if k in st else float("nan")
+        slowest = (f", slowest rank {ms('train/steps_gates_off/slowest_rank', gates_at):.2f}"
+                   f" / {ms('train/steps_gates_on/slowest_rank', iterations - gates_at):.2f}"
+                   if "train/steps_gates_off/slowest_rank" in st else "")
+        parts.append(f"rank {r}: {ms('train/steps_gates_off', gates_at):.2f} / "
+                     f"{ms('train/steps_gates_on', iterations - gates_at):.2f} ms/iter "
+                     f"gates off / on{slowest}, launches {rep['launches']}, peak "
+                     f"{rep.get('peak_bytes', 0) / 2**30:.2f} GiB")
+    return "; ".join(parts)
+
+
+def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
+               iterations=E2E_ITERATIONS, t=E2E_T):
+    """cli.train then cli.inference_benchmark with --devices n_ranks and
+    --devices 1 on copies of a preprocessed video directory (TrainConfig's
+    full width, ``iterations`` with both gates at half of them), then the
+    step's equality across ranks (``mesh_equality``). ``share``: every rank
+    on cuda:0 over gloo; else rank r on cuda:r over NCCL. Returns the
+    launches of K1-fwd and K1-bwd over every rank of every run."""
+    from dino_tracker_tpu_torch.cli import inference_benchmark
+    from dino_tracker_tpu_torch.cli import train as train_cli
+    from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+    from dino_tracker_tpu_torch.training import checkpoint
+    from dino_tracker_tpu_torch.utils import profiling
+    root = os.path.join(WORK_DIR, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {w: os.path.join(root, f"w{w}") for w in (n_ranks, 1)}
+    for d in dirs.values():
+        shutil.copytree(video_dir, d, ignore=shutil.ignore_patterns(
+            "models", "trajectories", "occlusions", "grid_*"))
+    mode = ["--share-device"] if share else []
+    how = (f"{n_ranks} ranks on {dev} over gloo (shared card)" if share
+           else f"{n_ranks} ranks on cuda:0..{n_ranks - 1} over NCCL")
+    gates_at = iterations // 2
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def run(cli, argv, w):
+        reset_counts()
+        profiling.reset_stage_timers()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reports = cli.main(argv + ["--devices", str(w)] + (mode if w > 1 else []))
+        return reports, time.perf_counter() - t0
+
+    train_args = lambda d: ["--config", train_yaml, "--data-path", d, "--device", dev.type]
+    trained = {w: run(train_cli, train_args(dirs[w]), w) for w in (n_ranks, 1)}
+    for w, d in dirs.items():
+        steps = checkpoint.checkpoint_steps(os.path.join(d, "models", "dino_tracker"))
+        check(steps == [iterations, gates_at], f"--devices {w} wrote checkpoints {steps}")
+    infer_args = train_args(dirs[n_ranks]) + ["--benchmark-pickle-path", bench_pkl,
+                                              "--video-id", "0"]
+    served = {}
+    with open(bench_pkl, "rb") as f:
+        frames = sorted(pickle.load(f)["videos"][0]["query_points"])
+    for w in (n_ranks, 1):  # both serve the W-rank run's checkpoint
+        served[w] = run(inference_benchmark, infer_args, w)
+        served[w] += ({f: (np.load(os.path.join(dirs[n_ranks], "trajectories",
+                                                f"trajectories_{f}.npy")),
+                           np.load(os.path.join(dirs[n_ranks], "occlusions",
+                                                f"occlusion_preds_{f}.npy")))
+                       for f in frames},)
+        for sub in ("trajectories", "occlusions"):
+            shutil.rmtree(os.path.join(dirs[n_ranks], sub))
+    px = max(float(np.abs(served[n_ranks][2][f][0] - served[1][2][f][0]).max())
+             for f in frames)
+    flips = sum(int((served[n_ranks][2][f][1] != served[1][2][f][1]).sum()) for f in frames)
+    finite = all(np.isfinite(served[w][2][f][0]).all() for w in served for f in frames)
+
+    # launches: each rank's DeltaDINO runs 3 blurpools a train step (its
+    # share of the frame set) and 3 a 16-frame refine chunk of its frames
+    refine = lambda w: [3 * -(-s // 16) for s in mesh_lib.split_sizes(t, w)]
+    for w in (n_ranks, 1):
+        got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["blurpool_up_nhwc"])
+               for r in trained[w][0]]
+        check(got == [(3 * iterations, 3 * iterations)] * w,
+              f"--devices {w} training launched K1-fwd / K1-bwd {got} times per rank")
+        got = [r["launches"]["blurpool_down_nhwc"] for r in served[w][0]]
+        check(got == refine(w), f"--devices {w} inference launched K1-fwd {got} "
+              f"times per rank, expected {refine(w)}")
+    launches = [0, 0]
+    for w in (n_ranks, 1):
+        for r in trained[w][0] + served[w][0]:
+            launches[0] += r["launches"]["blurpool_down_nhwc"]
+            launches[1] += r["launches"]["blurpool_up_nhwc"]
+    for w in (n_ranks, 1):
+        print(f"mesh: cli.train --devices {w} ({how if w > 1 else f'one process on {dev}'}"
+              f"), T={t} 854x476, TrainConfig's full width, {iterations} iterations, "
+              f"gates at {gates_at}: {trained[w][1]:.2f} s; {rank_line(trained[w][0], gates_at, iterations)}"
+              f" [{smi}]", flush=True)
+        reqs = ", ".join(f"{k.split('_')[-1]} {v['total_s']:.3f} s"
+                         for k, v in served[w][0][0]["stages"].items()
+                         if k.startswith("inference/query_frame_"))
+        print(f"mesh: cli.inference_benchmark --devices {w} on the {n_ranks}-rank "
+              f"checkpoint: {served[w][1]:.2f} s, rank 0 refine "
+              f"{served[w][0][0]['stages']['inference/refine']['total_s']:.3f} s, "
+              f"requests (query frame, s) {reqs}; K1-fwd per rank "
+              f"{[r['launches']['blurpool_down_nhwc'] for r in served[w][0]]} [{smi}]",
+              flush=True)
+    ok = px <= MESH_PX_TOL and flips == 0 and finite
+    print(f"mesh: inference --devices {n_ranks} against --devices 1 on one checkpoint: "
+          f"trajectories max diff {px:.3g} px (bound {MESH_PX_TOL}), occlusion flags "
+          f"differing {flips}: {'met' if ok else 'NOT MET'}", flush=True)
+    check(ok, "multi-rank inference disagrees with one device")
+
+    # the step itself: W ranks against one device (twice, for the card's own
+    # run-to-run spread: the row gathers' backward accumulates with atomics)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(mesh_equality, n_ranks, dev.type,
+                           args=(dirs[1], train_yaml), share_device=share, timeout=900)
+    eq_s = time.perf_counter() - t0
+    one = [mesh_equality(None, dirs[1], train_yaml, dev.type) for _ in range(2)]
+    if cuda:
+        torch.cuda.empty_cache()
+    lines, met = [], True
+    for dtype, (loss_rtol, grad_tol) in MESH_TOL.items():
+        ref = one[0][dtype]
+        # f32: each loss term relative to itself, beside an absolute 1e-7 for
+        # terms near 0 (as tests/test_torch_train_step.py compares them);
+        # bf16 (sign and scale): a term smaller than the total loss relative
+        # to the total, the scale the step trains on
+        total = abs(ref["metrics"]["loss_total"])
+        scale = lambda v: abs(v) + 1e-7 / loss_rtol if dtype == "float32" else max(
+            abs(v), total, 1e-30)
+        loss_err, worst = max((abs(r[dtype]["metrics"][k] - v) / scale(v), k)
+                              for r in ranks for k, v in ref["metrics"].items())
+
+        def grad_err(a):
+            """Largest difference over each tensor's largest magnitude; a
+            tensor that is zero on one device must be zero."""
+            errs = []
+            for n, g in ref["grads"].items():
+                if n in MESH_NULL_GRADS:
+                    continue
+                d, s = float((a["grads"][n] - g).abs().max()), float(g.abs().max())
+                errs.append(d / s if s else (0.0 if d == 0 else float("inf")))
+            return max(errs)
+
+        g_err = max(grad_err(r[dtype]) for r in ranks)
+        floor = grad_err(one[1][dtype])
+        bn_err = max(float((r[dtype]["buffers"][n] - b).abs().max()) for r in ranks
+                     for n, b in ref["buffers"].items())
+        # on the card, equality holds to the card's own run-to-run spread
+        bound = max(grad_tol, 2 * floor)
+        bn_bound = 1e-6 if dtype == "float32" else loss_rtol
+        ok = loss_err <= loss_rtol and g_err <= bound and bn_err <= bn_bound
+        met &= ok
+        lines.append(f"{dtype}: losses max rel diff {loss_err:.3g} ({worst}; bound "
+                     f"{loss_rtol}), "
+                     f"gradients max diff {g_err:.3g} of each tensor's max (bound "
+                     f"{grad_tol}, or twice one device's own run-to-run "
+                     f"{floor:.3g}: {bound:.3g}; {'within' if g_err <= grad_tol else 'NOT within'}"
+                     f" {grad_tol} itself), BN statistics max diff {bn_err:.3g} (bound "
+                     f"{bn_bound}): {'met' if ok else 'NOT MET'}")
+    first = ranks[0]["replica"]
+    same = all(torch.equal(r["replica"]["state"][k], v) for r in ranks[1:]
+               for k, v in first["state"].items()) and all(
+        torch.equal(r["replica"]["generator"], first["generator"]) for r in ranks[1:])
+    print(f"mesh: train step, {how}, against one device (TrainConfig's full width, "
+          f"gates on; f32 from the Trainer's init, bf16 from seeded non-zero weights; "
+          f"{eq_s:.1f} s): " + "; ".join(lines)
+          + f"; after {MESH_REPLICA_STEPS} bf16 steps every rank's parameters, BN "
+          f"statistics and generator state bitwise equal: {same}; then {MESH_TIMED_STEPS} "
+          f"warm steps under each set of gates, ms/iter gates off / on: one device "
+          f"{one[0]['warm_ms_off']:.2f} / {one[0]['warm_ms_on']:.2f}, each rank "
+          f"{[(round(r['warm_ms_off'], 2), round(r['warm_ms_on'], 2)) for r in ranks]}"
+          f"; the refine's gather "
+          f"of {ranks[0]['gather_bytes'] / 1e6:.1f} MB: rank times "
+          f"{[round(r['gather_ms'], 2) for r in ranks]} ms, its backward's all-reduce "
+          f"{[round(r['all_reduce_ms'], 2) for r in ranks]} ms [{smi}]", flush=True)
+    check(met and same, "the multi-rank train step disagrees with one device")
+    return launches
+
+
 def build_kernels(sources):
     """nvcc for each (name, module) at once; prints each source's seconds and
     what ptxas reports for its kernels."""
@@ -1872,6 +2223,10 @@ def main():
     ap.add_argument("--e2e-iterations", type=int, default=0,
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="run only the kernel builds, the launches on cuda:1, one "
+                         "video preprocessed and phase 12 with this many ranks, one "
+                         "card each over NCCL (needs that many cards)")
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
@@ -1880,9 +2235,10 @@ def main():
     from dino_tracker_tpu_torch.ops import window_gather as wg
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
+    smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    smi = smi_lines[0]
     print(smi, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1915,6 +2271,32 @@ def main():
         return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
                    ("corr_lookup.cu", wg)])
+    if args.mesh_devices:  # phase 12 over one card per rank
+        n = args.mesh_devices
+        check(n >= 2 and torch.cuda.device_count() >= n, f"--mesh-devices {n} needs "
+              f"{n} >= 2 CUDA devices, {torch.cuda.device_count()} visible")
+        print("devices: " + " | ".join(smi_lines[:n]), flush=True)
+        phase_other_card(bp, torch.device("cuda", 1))
+        root = os.path.join(WORK_DIR, "e2e")
+        shutil.rmtree(root, ignore_errors=True)
+        opts, _ = write_e2e_inputs(root, E2E_T, E2E_ITERATIONS, E2E_ITERATIONS // 2,
+                                   E2E_QUERY_FRAMES, E2E_POINTS, dev, E2E_SHIFTS[:1])
+        opts = dict(zip(opts[::2], opts[1::2]))
+        video_dir = os.path.join(opts["--dataset-root-dir"], "0")
+        from dino_tracker_tpu_torch.cli import preprocess
+        reset_counts()
+        t0 = time.perf_counter()
+        preprocess.main(["--config", opts["--preprocess-config"], "--data-path", video_dir,
+                         "--raft-checkpoint", opts["--raft-checkpoint"],
+                         "--dino-checkpoint", opts["--dino-checkpoint"], "--device", "cuda"])
+        pre = (fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+        print(f"mesh: preprocessed one video of T={E2E_T} at 854x476 in "
+              f"{time.perf_counter() - t0:.2f} s (K2 {pre[0]}, K3 {pre[1]} launches)",
+              flush=True)
+        phase_mesh(dev, video_dir, opts["--train-config"], opts["--benchmark-pickle-path"],
+                   n, False, " | ".join(smi_lines[:n]))
+        print_ok()
+        return
     if args.e2e_frames:  # the whole system alone, one video at DAVIS length
         from dino_tracker_tpu_torch.config import TrainConfig
         k = args.e2e_iterations or TrainConfig().total_iterations
@@ -1942,28 +2324,41 @@ def main():
     phase_raft_reference(dev)
     phase_bb_reference(dev)
     e2e = phase_e2e(dev, weights=weights)
+    if torch.cuda.device_count() >= 2:
+        phase_other_card(bp, torch.device("cuda", 1))
+    else:
+        print("other card: not run: one CUDA device is visible, and the launches on "
+              "cuda:1 from cuda:0 need two (python3 chip_smoke.py --mesh-devices N)",
+              flush=True)
+    e2e_root = os.path.join(WORK_DIR, "e2e")
+    mesh = phase_mesh(dev, os.path.join(e2e_root, "videos", "0"),
+                      os.path.join(e2e_root, "train.yaml"),
+                      os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS, True, smi)
+    print_kernels((k1, k1_bwd, k2, k3),
+                  (infer_launches + train_launches[0] + e2e[0] + mesh[0],
+                   train_launches[1] + e2e[1] + mesh[1], vit_launches + pre_k2 + e2e[2],
+                   raft_launches + pre_k3 + e2e[3]))
+    print_ok()
 
-    # launches: the sum of the main-path runs (K2 and K3 also the preprocess
-    # CLI's, every kernel also the whole system's), each counted from 0; K1 ms /
-    # plain_ms / bound_ms: the sum over its three bf16 shapes; K2's at the
-    # ViT stage's shape; K3's at one decode batch's
-    def entry(name, source, replaces, launches, numbers):
-        return {"name": name, "route": "cuda",
-                "source": f"dino_tracker_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, **numbers}
 
+def print_kernels(numbers, launches):
+    """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
+    K3 also the preprocess CLI's, every kernel also the whole system's, K1
+    also every rank's of phase 12), each counted from 0; K1 ms / plain_ms /
+    bound_ms: the sum over its three bf16 shapes; K2's at the ViT stage's
+    shape; K3's at one decode batch's."""
+    rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),
+            ("blurpool_up_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:67"),
+            ("flash_attention", "flash_attention.cu",
+             "dino_tracker_tpu/ops/flash_attention.py:27"),
+            ("corr_lookup", "corr_lookup.cu", "dino_tracker_tpu/ops/window_gather.py:37"))
     print(json.dumps({"kernels": [
-        entry("blurpool_down_nhwc", "blurpool.cu",
-              "dino_tracker_tpu/ops/blurpool.py:59",
-              infer_launches + train_launches[0] + e2e[0], k1),
-        entry("blurpool_up_nhwc", "blurpool.cu",
-              "dino_tracker_tpu/ops/blurpool.py:67", train_launches[1] + e2e[1], k1_bwd),
-        entry("flash_attention", "flash_attention.cu",
-              "dino_tracker_tpu/ops/flash_attention.py:27", vit_launches + pre_k2 + e2e[2],
-              k2),
-        entry("corr_lookup", "corr_lookup.cu",
-              "dino_tracker_tpu/ops/window_gather.py:37", raft_launches + pre_k3 + e2e[3],
-              k3)]}))
+        {"name": name, "route": "cuda", "source": f"dino_tracker_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": n, **nums}
+        for (name, source, replaces), n, nums in zip(rows, launches, numbers)]}))
+
+
+def print_ok():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

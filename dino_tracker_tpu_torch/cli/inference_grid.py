@@ -1,9 +1,25 @@
 """Grid-query inference CLI of the port (reference inference_grid.py);
 serves the newest checkpoint: the port trainer's state_<step>.pt, else the
-JAX trainer's state_<step>.msgpack."""
+JAX trainer's state_<step>.msgpack. ``--devices N`` shards the refine and
+the prediction rows over N ranks (``cli/_ranks.py``); rank 0 writes the
+files. ``main`` returns each rank's ``utils.profiling.rank_report``."""
 
 import argparse
-import logging
+
+from . import _ranks
+
+
+def _infer(mesh, args):
+    from ..config import TrainConfig
+    from ..runtime import DINOTrackerRuntime
+    from ..utils import profiling
+    device = _ranks.setup(mesh, args)
+    rt = DINOTrackerRuntime(args.data_path, TrainConfig.from_yaml(args.config),
+                            device, mesh=mesh)
+    rt.infer_grid(interval=args.interval, start_frame=args.start_frame,
+                  use_segm_mask=args.use_segm_mask, step=args.iter,
+                  chunk=args.batch_size)
+    return profiling.rank_report(device)
 
 
 def main(argv=None):
@@ -15,22 +31,8 @@ def main(argv=None):
     parser.add_argument("--interval", type=int, default=10)
     parser.add_argument("--use-segm-mask", action="store_true", default=False)
     parser.add_argument("--batch-size", type=int, default=4096)
-    parser.add_argument("--devices", type=int, default=0, choices=(0, 1),
-                        help="single device only in this port (0 or 1)")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to run on")
-    args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-
-    import torch
-    from ..config import TrainConfig
-    from ..runtime import DINOTrackerRuntime
-
-    cfg = TrainConfig.from_yaml(args.config)
-    rt = DINOTrackerRuntime(args.data_path, cfg, torch.device(args.device))
-    rt.infer_grid(interval=args.interval, start_frame=args.start_frame,
-                  use_segm_mask=args.use_segm_mask, step=args.iter,
-                  chunk=args.batch_size)
+    _ranks.add_arguments(parser)
+    return _ranks.run(_infer, parser.parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -25,7 +25,8 @@ def main(argv=None):
     parser.add_argument("--dino-checkpoint", default=None,
                         help="DINOv2 state-dict checkpoint (.pth/.npz)")
     parser.add_argument("--devices", type=int, default=0, choices=(0, 1),
-                        help="single device only in this port (0 or 1)")
+                        help="0 or 1: preprocessing runs on one device; its "
+                             "stages do not shard over ranks yet")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on")
     args = parser.parse_args(argv)

@@ -15,18 +15,25 @@ anchors to the buckets {8, 16, 32, T} only so XLA programs could be reused;
 padded rows and anchors were sliced off or masked, so dropping them leaves
 the results unchanged. ``chunk`` bounds predictions per dispatch and
 ``corr_budget_bytes`` the B×T×hw correlation working set.
+
+With a ``mesh`` (``parallel/mesh.py``) the prediction rows shard over the
+ranks, as the JAX package shards its flat query×frame batch: the first pass
+and the anchor re-tracking (most of a request) run each rank's share and
+gather the rows back; the cosine similarities and the occlusion rule run on
+every rank, so every rank returns the same answer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import TrackerConfig
 from ..models import tracker
+from ..parallel import mesh as mesh_lib
 from ..utils import coords as coord_utils
 
 
@@ -45,6 +52,7 @@ class ModelInference:
     chunk: int = 4096
     # cap on the B×T×h'w' f32 correlation intermediate per dispatch
     corr_budget_bytes: int = 2 << 30
+    mesh: Optional[mesh_lib.Mesh] = None  # shard the prediction rows
 
     def __post_init__(self):
         t, h, w, _ = self.refined_features.shape
@@ -67,17 +75,20 @@ class ModelInference:
     def _predict_multi_chunked(self, source_points: torch.Tensor,
                                source_frames: torch.Tensor,
                                target_frames_bk: torch.Tensor) -> torch.Tensor:
-        """B×3 pixel (x, y, ·) + B×K target frames -> B×K×2 pixel coords."""
+        """B×3 pixel (x, y, ·) + B×K target frames -> B×K×2 pixel coords;
+        with a mesh, each rank predicts its share of the B rows."""
         b, k = target_frames_bk.shape
+        first, stop = mesh_lib.row_range(b, self.mesh)
         chunk = self._multi_chunk(k)
-        outs = []
-        for s in range(0, b, chunk):
+        outs = [torch.zeros((0, k, 2), device=self.device)]
+        for s in range(first, stop, chunk):
+            e = min(s + chunk, stop)
             out = tracker.get_point_predictions_multi_target(
-                self.model, source_points[s:s + chunk],
-                source_frames[s:s + chunk], target_frames_bk[s:s + chunk],
-                self.refined_features, self.cfg, view=self._view)
+                self.model, source_points[s:e], source_frames[s:e],
+                target_frames_bk[s:e], self.refined_features, self.cfg,
+                view=self._view)
             outs.append((out + 1.0) * 0.5 * self._scale)
-        return torch.cat(outs, dim=0)
+        return mesh_lib.all_gather_rows(torch.cat(outs, dim=0), self.mesh, b)
 
     def compute_trajectories(self, query_points: torch.Tensor) -> torch.Tensor:
         """query_points N×3 (x, y, t) -> trajectories N×T×3 (x, y, t)."""

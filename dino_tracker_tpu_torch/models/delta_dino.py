@@ -68,7 +68,9 @@ class DeltaDINO(nn.Module):
     def forward(self, frames_nchw: torch.Tensor, vit_hw: Tuple[int, int],
                 vit_stride: int = 7, vit_patch_size: int = 14,
                 compute_dtype: torch.dtype = torch.float32,
-                channels_last: bool = False) -> torch.Tensor:
+                channels_last: bool = False, mesh=None) -> torch.Tensor:
+        """``mesh``: in train mode, each rank holds its share of the frames
+        and BN takes the statistics of all of them (``nn.batchnorm``)."""
         x = frames_nchw.permute(0, 2, 3, 1)
         n_layers = len(self.layers)
         for i, layer in enumerate(self.layers):
@@ -83,7 +85,8 @@ class DeltaDINO(nn.Module):
             x = pnn.conv2d(x.to(compute_dtype), layer.conv.weight, bias,
                            dilation=dilation, padding=padding,
                            padding_mode="reflect")
-            x, (mean, var) = pnn.batchnorm(x, layer.bn, train=self.training)
+            x, (mean, var) = pnn.batchnorm(x, layer.bn, train=self.training,
+                                           mesh=mesh)
             if self.training:
                 with torch.no_grad():
                     layer.bn.running_mean.copy_(mean)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import blurpool as blurpool_ops
+from ..parallel import mesh as mesh_lib
 
 
 class Conv(nn.Module):
@@ -136,20 +137,35 @@ def conv2d(x_nhwc: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def batchnorm(x_nhwc: torch.Tensor, bn: BatchNorm, train: bool,
-              momentum: float = 0.1, eps: float = 1e-5):
+              momentum: float = 0.1, eps: float = 1e-5, mesh=None):
     """torch BatchNorm2d semantics over the N, H, W axes.
 
     Statistics and the affine transform compute in f32; the output is cast
     back to x's dtype. In train mode the batch's biased variance normalizes
-    and the unbiased one enters the running update. Returns
-    (out, (new_mean, new_var)); the caller decides whether to store them.
+    and the unbiased one enters the running update. With a ``mesh`` of more
+    than one rank, each holding its share of the batch, train mode takes the
+    statistics of the whole batch: the per-channel sum, sum of squares and
+    element count go through one differentiable all-reduce, so every rank
+    normalizes alike and stores the same running statistics (eval mode is
+    per sample and needs none). Returns (out, (new_mean, new_var)); the
+    caller decides whether to store them.
     """
     if train:
         xf = x_nhwc.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
-        n = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2]
-        unbiased = var * (n / max(n - 1, 1))
+        if mesh_lib.is_parallel(mesh):
+            c = xf.shape[-1]
+            local = torch.cat([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2)),
+                               xf.new_full((1,), xf.numel() // c)])
+            total = mesh_lib.all_reduce_sum(local, mesh)
+            n = total[2 * c]
+            mean = total[:c] / n
+            var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+            unbiased = var * (n / torch.clamp(n - 1, min=1))
+        else:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            n = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2]
+            unbiased = var * (n / max(n - 1, 1))
         new_stats = ((1 - momentum) * bn.running_mean + momentum * mean.detach(),
                      (1 - momentum) * bn.running_var + momentum * unbiased.detach())
     else:

@@ -23,6 +23,7 @@ from torch import nn
 from .delta_dino import DeltaDINO
 from .tracker_head import TrackerHead
 from ..config import TrackerConfig
+from ..parallel import mesh as mesh_lib
 from ..utils import coords as coord_utils
 from ..utils.sampling import sample_feature_video_thwc
 
@@ -55,40 +56,55 @@ def _gather_frames(x_tchw: torch.Tensor, frames_set_t: torch.Tensor):
 
 def get_refined_embeddings(model: Tracker, video_tchw: torch.Tensor,
                            dino_embed_tchw: torch.Tensor,
-                           frames_set_t: torch.Tensor, cfg: TrackerConfig):
+                           frames_set_t: torch.Tensor, cfg: TrackerConfig,
+                           mesh=None):
     """(refined, raw) for the frame set: refined = raw DINO + DeltaDINO
     residual, both channels-last N×h'×w'×C f32. The feature stack enters in
     its artifact layout (T×C×h'×w', f16 or f32); the gathered frames upcast
     here (f16→f32 is exact). In train mode (``model.train()``) BN uses batch
-    statistics and updates its running buffers once."""
+    statistics and updates its running buffers once.
+
+    With a ``mesh`` of W ranks the frame set shards over them, as the JAX
+    package's ``constrain_batch`` shards it: each rank runs DeltaDINO on its
+    share (BN statistics over all of them) and every rank gets the whole
+    residual stack back (``all_gather_rows``, whose backward sums the ranks'
+    cotangents), so everything after the refiner sees every frame."""
     raw = _gather_frames(dino_embed_tchw, frames_set_t).float().permute(0, 2, 3, 1)
-    frames = _gather_frames(video_tchw, frames_set_t)
+    local = mesh_lib.split_rows(frames_set_t, mesh)
+    if local.shape[0] == 0:
+        raise ValueError(f"{frames_set_t.shape[0]} frames cannot give each of "
+                         f"{mesh_lib.world_size(mesh)} ranks one")
     residual = model.delta_dino(
-        frames, cfg.feat_hw, vit_stride=cfg.stride,
+        _gather_frames(video_tchw, local), cfg.feat_hw, vit_stride=cfg.stride,
         vit_patch_size=cfg.dino_patch_size,
-        compute_dtype=cfg.torch_compute_dtype, channels_last=True)
+        compute_dtype=cfg.torch_compute_dtype, channels_last=True, mesh=mesh)
+    residual = mesh_lib.all_gather_rows(residual, mesh, frames_set_t.shape[0])
     return raw + residual, raw
 
 
 @torch.no_grad()
 def cache_refined_embeddings(model: Tracker, video_tchw: torch.Tensor,
                              dino_embed_tchw: torch.Tensor, cfg: TrackerConfig,
-                             frames_chunk: int = 16) -> torch.Tensor:
+                             frames_chunk: int = 16, mesh=None) -> torch.Tensor:
     """Inference-time cache: refined features of ALL frames, eval-mode BN,
     channels-last T×h'×w'×C f32. Chunked over frames to bound activation
-    memory; the last chunk is simply shorter (BN in eval is per frame)."""
+    memory; the last chunk is simply shorter (BN in eval is per frame). With
+    a ``mesh`` each rank refines its share of the frames (uneven as
+    ``torch.tensor_split``; a rank may have none) and every rank gets the
+    whole stack."""
     if model.training:
         raise ValueError("cache_refined_embeddings needs model.eval()")
     t = video_tchw.shape[0]
+    first, stop = mesh_lib.row_range(t, mesh)
     hp, wp = cfg.feat_hw
-    out = torch.empty((t, hp, wp, dino_embed_tchw.shape[1]),
+    out = torch.empty((stop - first, hp, wp, dino_embed_tchw.shape[1]),
                       dtype=torch.float32, device=video_tchw.device)
-    for start in range(0, t, frames_chunk):
-        idx = torch.arange(start, min(start + frames_chunk, t),
+    for start in range(first, stop, frames_chunk):
+        idx = torch.arange(start, min(start + frames_chunk, stop),
                            device=video_tchw.device)
-        out[start:start + len(idx)] = get_refined_embeddings(
+        out[start - first:start - first + len(idx)] = get_refined_embeddings(
             model, video_tchw, dino_embed_tchw, idx, cfg)[0]
-    return out
+    return mesh_lib.all_gather_rows(out, mesh, t)
 
 
 def sample_embeddings(embeddings_nhwc: torch.Tensor,
@@ -178,13 +194,16 @@ def get_point_predictions_grouped(model: Tracker, points_gp3: torch.Tensor,
                                   target_frame_idx_g: torch.Tensor,
                                   frame_embeddings_nhwc: torch.Tensor,
                                   cfg: TrackerConfig,
-                                  view: Optional[FrameView] = None
-                                  ) -> torch.Tensor:
-    """Blocked prediction (JAX tracker.py:233-302, single device): group
-    g's P pixel points all lie on frame ``source_frame_idx_g[g]`` and
-    re-predict onto ``target_frame_idx_g[g]``, so each group correlates
-    against that one frame only (a batched G×P×C by G×C×hw GEMM). Returns
-    G×P×2 coords in (-1, 1)."""
+                                  view: Optional[FrameView] = None,
+                                  mesh=None) -> torch.Tensor:
+    """Blocked prediction (JAX tracker.py:233-302): group g's P pixel points
+    all lie on frame ``source_frame_idx_g[g]`` and re-predict onto
+    ``target_frame_idx_g[g]``, so each group correlates against that one
+    frame only (a batched G×P×C by G×C×hw GEMM). Returns G×P×2 coords in
+    (-1, 1). With a ``mesh`` the point axis P shards over the ranks, as the
+    JAX package's ``constrain_axis(..., 1)`` (G is a handful of frame pairs,
+    P hundreds of points): each rank predicts its share and gets G×P_r×2."""
+    points_gp3 = mesh_lib.split_rows(points_gp3, mesh, dim=1)
     g, p, _ = points_gp3.shape
     _, h, w, c = frame_embeddings_nhwc.shape
     cd = cfg.torch_compute_dtype

@@ -26,6 +26,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import _guard
+
 # binomial [1,3,3,1]/8 per axis — exact binary floats
 TAPS = (1.0 / 8.0, 3.0 / 8.0, 3.0 / 8.0, 1.0 / 8.0)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,9 +86,9 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     y = torch.empty((n, (h + 1) // 2, (w + 1) // 2, c), dtype=x.dtype,
                     device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.blurpool_down_nhwc(x.data_ptr(), y.data_ptr(), n, h, w, c,
-                                 _DTYPE_CODE[x.dtype], stream)
+    with _guard.on_device(x.device) as stream:
+        err = lib.blurpool_down_nhwc(x.data_ptr(), y.data_ptr(), n, h, w, c,
+                                     _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_down_nhwc launch failed: CUDA error {err}")
     blurpool_cuda.launches += 1
@@ -110,9 +112,9 @@ def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
                          f"({h}×{w}×{c})")
     lib, _ = load_library()
     gx = torch.empty((n, h, w, c), dtype=g_nhwc.dtype, device=g_nhwc.device)
-    stream = torch.cuda.current_stream(g_nhwc.device).cuda_stream
-    err = lib.blurpool_up_nhwc(g_nhwc.data_ptr(), gx.data_ptr(), n, h, w, c,
-                               _DTYPE_CODE[g_nhwc.dtype], stream)
+    with _guard.on_device(g_nhwc.device) as stream:
+        err = lib.blurpool_up_nhwc(g_nhwc.data_ptr(), gx.data_ptr(), n, h, w, c,
+                                   _DTYPE_CODE[g_nhwc.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_up_nhwc launch failed: CUDA error {err}")
     blurpool_cuda_bwd.launches += 1

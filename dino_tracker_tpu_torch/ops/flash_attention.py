@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import _guard
+
 HEAD_DIMS = (64,)  # the head dims the kernel takes (every DINOv2 preset: 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_STRIDE_BYTES = 1 << 40  # a tensor map's stride limit
@@ -134,10 +136,10 @@ def _launch_bf16(q, k, v, sm_scale):
     in_strides = (ctypes.c_int64 * 9)(*(x for m in maps for x in m.byte_strides))
     o_strides = (ctypes.c_int64 * 3)(out.stride(0), out.stride(1), out.stride(2))
     lib, _ = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                       out.data_ptr(), b, h, s, d, in_strides,
-                                       o_strides, float(sm_scale), stream)
+    with _guard.on_device(q.device) as stream:
+        err = lib.flash_attention_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), b, h, s, d, in_strides,
+                                           o_strides, float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1
@@ -154,11 +156,11 @@ def _launch_f32(q, k, v, sm_scale):
                              f"tensors, {name} is not")
     lib, _ = load_library()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     bh = q.numel() // (q.shape[-2] * q.shape[-1])
-    err = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      out.data_ptr(), bh, q.shape[-2], q.shape[-1],
-                                      float(sm_scale), stream)
+    with _guard.on_device(q.device) as stream:
+        err = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), bh, q.shape[-2], q.shape[-1],
+                                          float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd_f32 launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1

@@ -31,6 +31,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from . import _guard
+
 CORR_LEVELS = 4
 CORR_RADIUS = 4
 
@@ -159,9 +161,9 @@ def corr_lookup_cuda(pyramid: Sequence[torch.Tensor],
     out = torch.empty((b, CORR_LEVELS * (2 * CORR_RADIUS + 1) ** 2, h, w),
                       dtype=torch.float32, device=coords.device)
     sizes = [s for v in pyramid for s in v.shape[1:]]
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    err = lib.corr_lookup_fwd(*[v.data_ptr() for v in pyramid], *sizes,
-                              coords.data_ptr(), out.data_ptr(), b, h, w, stream)
+    with _guard.on_device(coords.device) as stream:
+        err = lib.corr_lookup_fwd(*[v.data_ptr() for v in pyramid], *sizes,
+                                  coords.data_ptr(), out.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"corr_lookup_fwd launch failed: CUDA error {err}")
     corr_lookup_cuda.launches += 1

@@ -1,0 +1,282 @@
+"""Data parallelism of the port over ranks (port of
+dino_tracker_tpu/parallel/mesh.py).
+
+The JAX package shards one program over a one-axis device mesh (``data``):
+the train step's point batch and DeltaDINO frame set, the cycle loss's
+per-pair point axis, the refine cache's frames and inference's flat
+prediction rows, with parameters replicated and XLA inserting the gradient
+psum. The port runs the same layout the way PyTorch does: one process per
+rank under ``torch.distributed`` (NCCL with one card per rank; gloo on the
+CPU), every rank holding the whole model, the whole video and the same
+random generator, and taking its share of each sharded axis
+(``split_rows``). Collectives are the port's own autograd Functions: the
+gather of a sharded axis (``all_gather_rows``, whose backward sums the
+cotangent over ranks and keeps this rank's rows) and a differentiable sum
+(``all_reduce_sum``); ``torch.distributed.nn`` is deprecated and
+``nn.SyncBatchNorm`` refuses CPU tensors.
+
+``spawn`` starts the ranks and returns what each one returned. A world of
+size 1 (``mesh=None`` everywhere) is the single-device path and needs no
+process group. ``spawn(..., share_device=True)`` puts every rank on one card
+over gloo (gloo stages CUDA collectives through host memory); it exists so
+that a machine with one card can run the multi-rank path, and only the tests
+and the smoke script use it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This process's place in the world: its rank, the world size, the
+    device it computes on, and the process group of the collectives."""
+    rank: int
+    world_size: int
+    device: torch.device
+    group: Any = None
+
+
+def world_size(mesh: Optional[Mesh]) -> int:
+    return 1 if mesh is None else mesh.world_size
+
+
+def is_parallel(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def is_main(mesh: Optional[Mesh]) -> bool:
+    """Rank 0, or the single-device path: the process that writes files."""
+    return mesh is None or mesh.rank == 0
+
+
+def split_sizes(n: int, parts: int) -> list[int]:
+    """The sizes ``torch.tensor_split`` gives ``n`` rows in ``parts``: the
+    first ``n % parts`` parts one row longer."""
+    q, r = divmod(n, parts)
+    return [q + 1] * r + [q] * (parts - r)
+
+
+def row_range(n: int, mesh: Optional[Mesh]) -> tuple[int, int]:
+    """[start, stop) of this rank's rows of an axis of ``n``."""
+    if not is_parallel(mesh):
+        return 0, n
+    sizes = split_sizes(n, mesh.world_size)
+    start = sum(sizes[:mesh.rank])
+    return start, start + sizes[mesh.rank]
+
+
+def split_rows(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
+    """This rank's share of ``x`` along ``dim`` (uneven as
+    ``torch.tensor_split``); all of it on a single device."""
+    if not is_parallel(mesh):
+        return x
+    start, stop = row_range(x.shape[dim], mesh)
+    return x.narrow(dim, start, stop - start)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ranks; every rank gets the sum. Each rank's loss depends on
+    the sum it holds, so the cotangent of every rank's input is the sum of
+    the ranks' cotangents: the backward is the same all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Differentiable sum of ``x`` over ranks (``x`` itself on one device)."""
+    if not is_parallel(mesh):
+        return x
+    return _AllReduceSum.apply(x, mesh.group)
+
+
+def _gather_padded(x: torch.Tensor, sizes: Sequence[int], group) -> torch.Tensor:
+    """Every rank's rows in rank order: each rank's ``x`` (``sizes[rank]``
+    rows) padded to the longest, one all_gather, the padding dropped."""
+    longest = max(sizes)
+    if x.shape[0] < longest:
+        x = torch.cat([x, x.new_zeros((longest - x.shape[0], *x.shape[1:]))])
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in sizes]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+
+class _GatherRows(torch.autograd.Function):
+    """The whole axis from every rank's rows. Every rank's loss may depend on
+    every row, so a row's cotangent is the sum over ranks of the cotangents
+    of the gathered axis: an all-reduce, then this rank's rows. (gloo has no
+    reduce-scatter; the all-reduce moves twice its bytes.)"""
+
+    @staticmethod
+    def forward(ctx, x, sizes, rank, group):
+        ctx.sizes, ctx.rank, ctx.group = sizes, rank, group
+        return _gather_padded(x, sizes, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        start = sum(ctx.sizes[:ctx.rank])
+        return g[start:start + ctx.sizes[ctx.rank]], None, None, None
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int,
+                    dim: int = 0) -> torch.Tensor:
+    """Inverse of ``split_rows``: this rank's share of an axis of ``n`` along
+    ``dim`` -> the whole axis, on every rank; differentiable."""
+    if not is_parallel(mesh):
+        return x
+    sizes = split_sizes(n, mesh.world_size)
+    if x.shape[dim] != sizes[mesh.rank]:
+        raise ValueError(f"rank {mesh.rank} holds {x.shape[dim]} rows of an axis "
+                         f"of {n}; split_rows gives it {sizes[mesh.rank]}")
+    y = _GatherRows.apply(x.movedim(dim, 0), tuple(sizes), mesh.rank, mesh.group)
+    return y.movedim(0, dim)
+
+
+def all_reduce_grads(model: torch.nn.Module, mesh: Optional[Mesh]):
+    """Sum every parameter's gradient over ranks in one flat bucket (the
+    psum XLA inserts for replicated parameters). Every rank must hold
+    gradients for the same parameters."""
+    if not is_parallel(mesh):
+        return
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def barrier(mesh: Optional[Mesh]):
+    """Wait until every rank got here (an all-reduce on the ranks' devices,
+    which every backend takes)."""
+    if is_parallel(mesh):
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+
+
+def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
+    """Pad ``axis`` up to a multiple by repeating the last slice (the JAX
+    package's copy, mesh.py:62-73)."""
+    n = x.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x
+    last = np.take(x, [-1], axis=axis)
+    reps = [1] * x.ndim
+    reps[axis] = rem
+    return np.concatenate([x, np.tile(last, reps)], axis=axis)
+
+
+def check_devices(n_devices: int, device_type: str, share_device: bool = False):
+    """Raise unless ``n_devices`` ranks can each get what they need: one
+    CUDA card each (or one card for all with ``share_device``), or the
+    CPU."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device type {device_type!r}: ranks run on 'cuda' or 'cpu'")
+    if n_devices < 1:
+        raise ValueError(f"{n_devices} ranks")
+    if device_type == "cuda":
+        have = torch.cuda.device_count()
+        need = 1 if share_device else n_devices
+        if have < need:
+            raise RuntimeError(
+                f"{n_devices} ranks need {need} CUDA device(s) and {have} are "
+                f"visible: nothing runs on fewer ranks or on the CPU instead")
+
+
+def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
+    if device_type == "cuda":
+        index = 0 if share_device else rank
+        torch.cuda.set_device(index)  # before any other CUDA call of the rank
+        device = torch.device("cuda", index)
+        backend = "gloo" if share_device else "nccl"
+    else:
+        device, backend = torch.device("cpu"), "gloo"
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    # the ranks share one host: their sockets stay on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = dist.FileStore(os.path.join(workdir, "store"), n)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=n)
+    try:
+        out = fn(Mesh(rank, n, device, dist.group.WORLD), *args)
+        torch.save(out, os.path.join(workdir, f"result_{rank}.pt"))
+    except BaseException:
+        # a rank that fails closes its connections, and its peers then fail
+        # in their next collective: each rank leaves its own traceback
+        with open(os.path.join(workdir, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
+          args: tuple = (), share_device: bool = False,
+          timeout: Optional[float] = None) -> list:
+    """Run ``fn(mesh, *args)`` on ``n_devices`` ranks, one spawned process
+    each, and return each rank's return value (moved to host memory), in
+    rank order.
+
+    Rank r binds ``cuda:r`` (NCCL), or with ``share_device`` every rank binds
+    ``cuda:0`` (gloo); ``device_type="cpu"`` runs gloo ranks on
+    the CPU. Rendezvous is a ``FileStore`` in a temporary directory: no port,
+    no network. ``fn`` and ``args`` must pickle (``fn`` a module-level
+    function). A rank that raises makes ``spawn`` stop the others and raise;
+    so does a run longer than ``timeout`` seconds. The error lists every
+    failed rank's traceback: the first rank to fail need not be the first
+    one reported."""
+    check_devices(n_devices, device_type, share_device)
+    workdir = tempfile.mkdtemp(prefix="mesh-")
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, nprocs=n_devices, join=False, start_method="spawn",
+            args=(fn, n_devices, device_type, share_device, workdir, tuple(args)))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while not ctx.join(None if deadline is None
+                               else max(deadline - time.monotonic(), 0.0)):
+                if deadline is not None and time.monotonic() >= deadline:
+                    for p in ctx.processes:
+                        p.terminate()
+                    for p in ctx.processes:
+                        p.join()
+                    raise TimeoutError(f"{n_devices} ranks did not finish in "
+                                       f"{timeout} s")
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            errors = [f"rank {r}:\n{open(path).read()}" for r in range(n_devices)
+                      if os.path.exists(path := os.path.join(workdir, f"error_{r}.txt"))]
+            raise RuntimeError(f"{len(errors)} of {n_devices} ranks failed\n"
+                               + "\n".join(errors or [str(e)])) from e
+        return [torch.load(os.path.join(workdir, f"result_{r}.pt"),
+                           map_location="cpu", weights_only=False)
+                for r in range(n_devices)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)

@@ -1,4 +1,5 @@
-"""Per-video runtime of the port (single device): training and inference.
+"""Per-video runtime of the port: training and inference, on one device or
+data parallel over the ranks of a ``mesh`` (``parallel/mesh.py``).
 
 Port of dino_tracker_tpu/runtime.py: binds a video's on-disk artifacts
 (frames, the DINO feature stack, fg masks, trajectories, best buddies, a
@@ -13,6 +14,11 @@ the newest of those, and otherwise a ``state_<step>.msgpack`` written by the
 JAX trainer. ``make_model_inference`` and ``load_model`` are the in-memory
 entry points under ``DINOTrackerRuntime``: they take tensors, a model or a
 checkpoint folder, and need no config file.
+
+With a ``mesh`` (the JAX runtime's ``mesh_devices``, runtime.py:38-49) every
+rank loads the video's artifacts onto its own device and runs the same
+calls: training shards the frame set and the point batches, the refine cache
+its frames and inference its prediction rows; rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from .config import (TrackerConfig, TrainConfig, add_config_paths,
 from .evaluation.tapvid import get_query_points_from_benchmark_config
 from .inference.infer import ModelInference
 from .models import tracker as tracker_lib
+from .parallel import mesh as mesh_lib
 from .structures import load_bb_data
 from .training import checkpoint as ckpt_lib
 from .training import train as train_lib
@@ -64,11 +71,12 @@ def make_model_inference(model: tracker_lib.Tracker, video_tchw: torch.Tensor,
                          dino_embed_tchw: torch.Tensor, tcfg: TrackerConfig,
                          anchor_cosine_similarity_threshold: float,
                          cosine_similarity_threshold: float,
-                         chunk: int = 4096) -> ModelInference:
+                         chunk: int = 4096, mesh=None) -> ModelInference:
     """Refine every frame's features (eval mode) and wrap them for queries.
 
     ``video_tchw`` T×3×H×W in [0, 1] and ``dino_embed_tchw`` T×C×h'×w' (the
-    f16 artifact) lie on the device the model lives on."""
+    f16 artifact) lie on the device the model lives on. With a ``mesh`` the
+    refine and the queries shard over its ranks."""
     want = tcfg.delta_channels[-1]
     if dino_embed_tchw.shape[1] != want:
         raise ValueError(
@@ -77,11 +85,12 @@ def make_model_inference(model: tracker_lib.Tracker, video_tchw: torch.Tensor,
             "different DINO variant than this config")
     model.eval()
     refined = tracker_lib.cache_refined_embeddings(model, video_tchw,
-                                                   dino_embed_tchw, tcfg)
+                                                   dino_embed_tchw, tcfg, mesh=mesh)
     return ModelInference(
         model=model, refined_features=refined, cfg=tcfg,
         anchor_cosine_similarity_threshold=anchor_cosine_similarity_threshold,
-        cosine_similarity_threshold=cosine_similarity_threshold, chunk=chunk)
+        cosine_similarity_threshold=cosine_similarity_threshold, chunk=chunk,
+        mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -90,8 +99,11 @@ class DINOTrackerRuntime:
     cfg: TrainConfig
     device: torch.device = torch.device("cuda")
     seed: int = 2
+    mesh: Optional[mesh_lib.Mesh] = None  # data parallel over its ranks
 
     def __post_init__(self):
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.paths = add_config_paths(self.data_path)
         self.tcfg = tracker_config_from_train(self.cfg)
 
@@ -146,7 +158,8 @@ class DINOTrackerRuntime:
         return train_lib.Trainer(
             cfg=self.cfg, tcfg=self.tcfg, data=data,
             ckpt_folder=self.paths["ckpt_folder"], seed=self.seed,
-            bank_rotator=self.bank_rotator, device=self.device).train()
+            bank_rotator=self.bank_rotator, device=self.device,
+            mesh=self.mesh).train()
 
     def load_state(self, step: Optional[int] = None) -> tracker_lib.Tracker:
         """The trained model (see ``load_model``) on this runtime's device."""
@@ -165,25 +178,30 @@ class DINOTrackerRuntime:
             torch.from_numpy(video).to(self.device),
             torch.from_numpy(dino).to(self.device), self.tcfg,
             self.cfg.anchor_cosine_similarity_threshold,
-            self.cfg.cosine_similarity_threshold, chunk)
+            self.cfg.cosine_similarity_threshold, chunk, self.mesh)
 
     def infer_benchmark(self, benchmark_pickle_path: str, video_id: int,
                         step: Optional[int] = None, chunk: int = 4096):
         """Per-query-frame trajectory/occlusion predictions saved as .npy
         (reference inference_benchmark.py:13-41). The refine and each query
         frame's request are stage timers (``inference/refine``,
-        ``inference/query_frame_<f>``), fenced on the device."""
+        ``inference/query_frame_<f>``), fenced on the device. Rank 0 writes
+        the files."""
         with stage_timer("inference/refine", fence=self.device):
             mi = self.get_model_inference(step, chunk)
         qp = get_query_points_from_benchmark_config(
             benchmark_pickle_path, video_id,
             rescale_sizes=[self.cfg.video_resw, self.cfg.video_resh])
-        os.makedirs(self.paths["trajectories_dir"], exist_ok=True)
-        os.makedirs(self.paths["occlusions_dir"], exist_ok=True)
+        main = mesh_lib.is_main(self.mesh)
+        if main:
+            os.makedirs(self.paths["trajectories_dir"], exist_ok=True)
+            os.makedirs(self.paths["occlusions_dir"], exist_ok=True)
         for frame_idx in sorted(qp.keys()):
             pts = np.asarray(qp[frame_idx], np.float32)
             with stage_timer(f"inference/query_frame_{frame_idx}", fence=self.device):
                 trajs, occ = mi.infer(pts)
+            if not main:
+                continue
             np.save(os.path.join(self.paths["trajectories_dir"],
                                  f"trajectories_{frame_idx}.npy"), trajs)
             np.save(os.path.join(self.paths["occlusions_dir"],
@@ -210,6 +228,8 @@ class DINOTrackerRuntime:
         scale = np.asarray([self.cfg.video_resw / orig_w,
                             self.cfg.video_resh / orig_h, 1.0], np.float32)
         trajs, occ = mi.infer(qp * scale)
+        if not mesh_lib.is_main(self.mesh):
+            return trajs, occ
         os.makedirs(self.paths["grid_trajectories_dir"], exist_ok=True)
         os.makedirs(self.paths["grid_occlusions_dir"], exist_ok=True)
         np.save(os.path.join(self.paths["grid_trajectories_dir"],

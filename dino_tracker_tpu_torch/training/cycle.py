@@ -12,6 +12,12 @@ gives a zero loss; it is not resampled.
 Trap (one DeltaDINO forward per step): BN running statistics update inside
 the forward, so cycle data is computed from the step's refined stack (under
 ``no_grad``), never from a second DeltaDINO forward.
+
+With a ``mesh`` the per-pair point axis P shards over the ranks (JAX
+cycle.py:89,169 and tracker.py:274): the filter's predictions are each
+rank's share gathered back, so every rank holds the same ``CycleData``; the
+loss sums each rank's share over the global count of survivors, so the
+ranks' losses add up to the single-device one.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..models import tracker
+from ..parallel import mesh as mesh_lib
 from . import losses
 
 
@@ -60,7 +67,8 @@ def sample_cycle_points(generator, frames_set_t, fg_masks_thw, n_pairs: int,
 @torch.no_grad()
 def cycle_data_from_points(model, frame_embeddings, frames_set_t,
                            cfg: TrackerConfig, src_sel, tgt_sel, coords,
-                           valid, thresh: float, view=None) -> CycleData:
+                           valid, thresh: float, view=None,
+                           mesh=None) -> CycleData:
     """The deterministic half: predict the points source → target → source
     with the grouped path (one target frame per pair) and keep those that
     return within ``thresh`` px (JAX cycle.py:68-108)."""
@@ -74,7 +82,9 @@ def cycle_data_from_points(model, frame_embeddings, frames_set_t,
 
     def predict(points, s_idx, t_idx):
         out = tracker.get_point_predictions_grouped(
-            model, points, s_idx, t_idx, frame_embeddings, cfg, view=view)
+            model, points, s_idx, t_idx, frame_embeddings, cfg, view=view,
+            mesh=mesh)
+        out = mesh_lib.all_gather_rows(out, mesh, k, dim=1)
         return (out + 1.0) * 0.5 * scale  # (-1, 1) -> pixel
 
     source_points = with_t(coords, src_sel)
@@ -89,21 +99,25 @@ def cycle_data_from_points(model, frame_embeddings, frames_set_t,
 def generate_cycle_data(generator, model, frame_embeddings, frames_set_t,
                         fg_masks_thw, cfg: TrackerConfig, n_pairs: int,
                         points_per_pair: int, fg_ratio: float, thresh: float,
-                        view=None) -> CycleData:
-    """Random points, then their cycle filter (JAX ``generate_cycle_data``)."""
+                        view=None, mesh=None) -> CycleData:
+    """Random points, then their cycle filter (JAX ``generate_cycle_data``).
+    Every rank draws the same points from its copy of the generator."""
     src_sel, tgt_sel, coords, valid = sample_cycle_points(
         generator, frames_set_t, fg_masks_thw, n_pairs, points_per_pair,
         fg_ratio)
     return cycle_data_from_points(model, frame_embeddings, frames_set_t, cfg,
                                   src_sel, tgt_sel, coords, valid, thresh,
-                                  view)
+                                  view, mesh)
 
 
 def cycle_loss_from_preds(both_preds, data: CycleData, cfg: TrackerConfig,
-                          gamma: float, huber_delta: float = 1.0 / 32.0):
+                          gamma: float, huber_delta: float = 1.0 / 32.0,
+                          count=None):
     """γ^dist-weighted Huber of the merged source→target and target→source
     predictions (2P×2, in (-1, 1)) against the cycle endpoints; zero when no
-    point survived the filter."""
+    point survived the filter. ``count`` is the number of survivors the
+    loss is normalised by (default: those of ``data``; a rank holding a
+    share of the points passes the global count)."""
     p = data.source_points.shape[0]
     st, ts = both_preds[:p], both_preds[p:]
     scale = torch.tensor([cfg.video_w - 1, cfg.video_h - 1],
@@ -111,7 +125,8 @@ def cycle_loss_from_preds(both_preds, data: CycleData, cfg: TrackerConfig,
     tgt_norm = 2.0 * data.target_points[:, :2] / scale - 1.0
     src_norm = 2.0 * data.source_points[:, :2] / scale - 1.0
     weight = (gamma ** data.dists) * data.valid
-    count = data.valid.sum()
+    if count is None:
+        count = data.valid.sum()
     n = torch.clamp(count, min=1)
     loss_st = (weight[:, None] * losses.huber(st, tgt_norm, huber_delta)).sum() / (2 * n)
     loss_ts = (weight[:, None] * losses.huber(ts, src_norm, huber_delta)).sum() / (2 * n)
@@ -120,19 +135,26 @@ def cycle_loss_from_preds(both_preds, data: CycleData, cfg: TrackerConfig,
 
 def cycle_consistency_loss(model, frame_embeddings, data: CycleData,
                            cfg: TrackerConfig, gamma: float, group_size: int,
-                           huber_delta: float = 1.0 / 32.0, view=None):
+                           huber_delta: float = 1.0 / 32.0, view=None,
+                           mesh=None):
     """Re-predict both directions with gradients (reference
     dino_tracker.py:346-353). The CycleData rows come in contiguous per-pair
     blocks of ``group_size`` (as ``cycle_data_from_points`` emits them), so
-    the grouped path correlates each block against its one target frame."""
+    the grouped path correlates each block against its one target frame.
+    With a ``mesh`` each rank takes its share of every block and returns its
+    part of the loss (normalised by the global survivor count)."""
     p = data.source_points.shape[0]
     g = p // group_size
-    sp = data.source_points.reshape(g, group_size, 3)
-    tp = data.target_points.reshape(g, group_size, 3)
+    count = data.valid.sum()
     src_g = data.source_frame_indices.reshape(g, group_size)[:, 0]
     tgt_g = data.target_frame_indices.reshape(g, group_size)[:, 0]
+    data = CycleData(*(mesh_lib.split_rows(x.reshape(g, group_size, *x.shape[1:]),
+                                           mesh, dim=1).reshape(-1, *x.shape[1:])
+                       for x in data))
+    sp = data.source_points.reshape(g, -1, 3)
+    tp = data.target_points.reshape(g, -1, 3)
     both = tracker.get_point_predictions_grouped(
         model, torch.cat([sp, tp]), torch.cat([src_g, tgt_g]),
         torch.cat([tgt_g, src_g]), frame_embeddings, cfg,
-        view=view).reshape(2 * p, 2)
-    return cycle_loss_from_preds(both, data, cfg, gamma, huber_delta)
+        view=view).reshape(-1, 2)
+    return cycle_loss_from_preds(both, data, cfg, gamma, huber_delta, count)

@@ -13,6 +13,17 @@ JAX package's two compiled phase variants and its ``steps_per_call``
 ``lax.scan`` chunking have no counterpart: the loop runs one step per
 iteration.
 
+Parallelism (``mesh``, ``parallel/mesh.py``): every rank holds the same
+parameters and the same generator, so every rank draws the single-device
+batch, cycle points and contrastive pairs. The DeltaDINO frame set, the
+point batch and the cycle loss's per-pair points shard over the ranks (the
+JAX package's ``constrain_batch`` / ``constrain_axis``); the terms computed
+from the whole refined stack (the two contrastive terms, the two
+regularisers) run on every rank, scaled by 1/W. Each rank's loss is then
+its share of the single-device loss, and the gradients summed over ranks
+(``all_reduce_grads``) are the single-device ones, so Adam keeps the
+parameters replicated.
+
 ``cfg`` is the port's ``config.TrainConfig`` (or any object with its
 fields).
 """
@@ -28,7 +39,9 @@ import torch
 
 from ..config import TrackerConfig
 from ..models import tracker
+from ..parallel import mesh as mesh_lib
 from ..structures import BBData
+from ..utils import profiling
 from ..utils.profiling import stage_timer
 from . import checkpoint as ckpt_lib
 from . import contrastive, cycle, losses
@@ -81,20 +94,25 @@ def step_losses(model: tracker.Tracker, data: VideoData, sample: TrainSample,
                 generator: torch.Generator, cfg, tcfg: TrackerConfig,
                 use_cyc: bool, use_cl_ref: bool,
                 cyc_data: Optional[cycle.CycleData] = None,
-                dino_pair_sel=None, ref_pair_sel=None):
+                dino_pair_sel=None, ref_pair_sel=None, mesh=None):
     """The loss of one step (the JAX ``loss_fn`` of make_train_step,
     train.py:113-181) on a sampled batch -> (total, metrics). The model must
     be in train mode. ``cyc_data`` and the two ``*_pair_sel`` replace the
-    step's own random draws of those terms (tests inject them)."""
+    step's own random draws of those terms (tests inject them). With a
+    ``mesh`` both are this rank's share: summed over ranks
+    (``reduce_metrics``) they are the single-device values."""
     frames_set_t = sample.frames_set_t
     refined, raw = tracker.get_refined_embeddings(
-        model, data.video, data.dino_embed, frames_set_t, tcfg)
+        model, data.video, data.dino_embed, frames_set_t, tcfg, mesh=mesh)
     # one cast+norm pass of the refined stack, shared by every loss term
     view = tracker.make_frame_view(refined, tcfg.torch_compute_dtype)
+    # the flow term: the mean over the batch of this rank's points' sum
+    rows = lambda x: mesh_lib.split_rows(x, mesh)
     coords = tracker.get_point_predictions(
-        model, sample.t1_points, sample.source_frame_indices,
-        sample.target_frame_indices, refined, tcfg, view=view)
-    l_of = losses.huber(coords, sample.t2_points_normalized[:, :2]).mean()
+        model, rows(sample.t1_points), rows(sample.source_frame_indices),
+        rows(sample.target_frame_indices), refined, tcfg, view=view)
+    labels = sample.t2_points_normalized[:, :2]
+    l_of = losses.huber(coords, rows(labels)).sum() / labels.numel()
     total = l_of
     zero = torch.zeros((), device=refined.device)
 
@@ -104,39 +122,54 @@ def step_losses(model: tracker.Tracker, data: VideoData, sample: TrainSample,
             cyc_data = cycle.generate_cycle_data(
                 generator, model, refined, frames_set_t, data.fg_masks, tcfg,
                 cfg.cyc_n_frames, cfg.cyc_batch_size_per_frame,
-                cfg.cyc_fg_points_ratio, cfg.cyc_thresh, view=view)
+                cfg.cyc_fg_points_ratio, cfg.cyc_thresh, view=view, mesh=mesh)
         l_cyc = cycle.cycle_consistency_loss(
             model, refined, cyc_data, tcfg, cfg.cyc_gamma,
-            group_size=cfg.cyc_batch_size_per_frame, view=view)
+            group_size=cfg.cyc_batch_size_per_frame, view=view, mesh=mesh)
         total = total + cfg.lambda_cyc * l_cyc
 
+    # the terms of the whole refined stack: every rank computes them whole
+    # and takes 1/W of each
+    share = lambda v: v / mesh.world_size if mesh_lib.is_parallel(mesh) else v
     l_cl_ref = zero
     if use_cl_ref:
-        l_cl_ref = contrastive.refined_bb_contrastive_loss(
+        l_cl_ref = share(contrastive.refined_bb_contrastive_loss(
             generator, refined, frames_set_t, data.fg_masks, tcfg,
             cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
-            cfg.cl_temp, cfg.cl_div_ref_bb, view=view, pair_sel=ref_pair_sel)
+            cfg.cl_temp, cfg.cl_div_ref_bb, view=view, pair_sel=ref_pair_sel))
         total = total + cfg.lambda_cl_ref_bb * l_cl_ref
 
-    l_cl_dino = contrastive.dino_bb_contrastive_loss(
+    l_cl_dino = share(contrastive.dino_bb_contrastive_loss(
         generator, refined, frames_set_t, data.bb, data.fg_masks, tcfg,
         cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
         cfg.cl_temp, cfg.cl_div_dino_bb, cfg.bb_amb_sig_a, cfg.bb_amb_sig_b,
-        view=view, pair_sel=dino_pair_sel)
-    l_norm = losses.emb_norm_regularization(refined, raw)
-    l_angle = losses.emb_angle_regularization(refined, raw)
+        view=view, pair_sel=dino_pair_sel))
+    l_norm = share(losses.emb_norm_regularization(refined, raw))
+    l_angle = share(losses.emb_angle_regularization(refined, raw))
     total = (total + cfg.lambda_cl_dino_bb * l_cl_dino
              + cfg.lambda_emb_norm * l_norm + cfg.lambda_angle * l_angle)
     values = (l_of, l_cyc, l_cl_ref, l_cl_dino, l_norm, l_angle, total)
     return total, {k: v.detach() for k, v in zip(METRICS, values)}
 
 
+def reduce_metrics(metrics: dict, mesh=None) -> dict:
+    """The ranks' shares of ``step_losses``'s metrics summed (one
+    all-reduce): the single-device values on every rank."""
+    if not mesh_lib.is_parallel(mesh):
+        return metrics
+    keys = list(metrics)
+    total = mesh_lib.all_reduce_sum(torch.stack([metrics[k] for k in keys]), mesh)
+    return dict(zip(keys, total))
+
+
 def train_step(model: tracker.Tracker, opt, sched, data: VideoData,
                generator: torch.Generator, use_cyc: bool, use_cl_ref: bool,
-               cfg, tcfg: TrackerConfig) -> dict:
+               cfg, tcfg: TrackerConfig, mesh=None) -> dict:
     """One training iteration (the body of the JAX make_train_step,
     train.py:98-187): sample, losses, backward, Adam step. Returns the
-    metrics as device scalars (reading them is the caller's sync)."""
+    metrics as device scalars (reading them is the caller's sync); with a
+    ``mesh``, this rank's shares of them (``reduce_metrics``), after the
+    gradients were summed over the ranks."""
     fg_batch = resolve_fg_batch(data.fg_bank, data.bg_bank,
                                 cfg.train_batch_size, cfg.fg_traj_ratio)
     sample = sample_batch(generator, data.fg_bank, data.bg_bank,
@@ -144,9 +177,10 @@ def train_step(model: tracker.Tracker, opt, sched, data: VideoData,
                           cfg.fg_traj_ratio, data.video.shape[0],
                           cfg.video_resw, cfg.video_resh, fg_batch=fg_batch)
     total, metrics = step_losses(model, data, sample, generator, cfg, tcfg,
-                                 use_cyc, use_cl_ref)
+                                 use_cyc, use_cl_ref, mesh=mesh)
     opt.zero_grad(set_to_none=True)
     total.backward()
+    mesh_lib.all_reduce_grads(model, mesh)
     opt.step()
     sched.step()
     return metrics
@@ -176,7 +210,13 @@ class Trainer:
     (``train/init``), the steps under each set of gates (``steps_stage``),
     and apart from them the log's metric reads (``train/log``), the
     checkpoints' snapshots and the final save (``train/checkpoint``) and the
-    bank rotations (``train/bank_rotation``)."""
+    bank rotations (``train/bank_rotation``).
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank runs this loop on its
+    own device with the same seed: the metrics are summed over the ranks for
+    the log, rank 0 alone logs and writes checkpoints, every rank resumes from
+    the same file, and the timers are each rank's own, with the slowest
+    rank's steps added as ``<stage>/slowest_rank``."""
 
     cfg: object  # config.TrainConfig, or any object with its fields
     tcfg: TrackerConfig
@@ -185,6 +225,11 @@ class Trainer:
     seed: int = 2
     bank_rotator: Optional[object] = None  # sampler.BankRotator for long videos
     device: torch.device = torch.device("cuda")
+    mesh: Optional[mesh_lib.Mesh] = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            self.device = self.mesh.device
 
     def init_model(self) -> tracker.Tracker:
         """The seeded initial model (drawn on the CPU, so every device starts
@@ -209,6 +254,7 @@ class Trainer:
         i = max(i, 0)
 
         running, running_n = {}, 0
+        main = mesh_lib.is_main(self.mesh)
         saver = ckpt_lib.AsyncSaver()
         steps, gates = contextlib.ExitStack(), None  # the open timer of a run of steps
         while i < cfg.total_iterations:
@@ -218,7 +264,7 @@ class Trainer:
                 steps.enter_context(stage_timer(steps_stage(*on), fence=self.device))
                 gates = on
             metrics = train_step(model, opt, sched, self.data, generator, *on,
-                                 cfg, self.tcfg)
+                                 cfg, self.tcfg, self.mesh)
             for k, v in metrics.items():
                 running[k] = running.get(k, 0.0) + v
             running_n += 1
@@ -233,10 +279,12 @@ class Trainer:
                 gates = None
             if log:
                 with stage_timer("train/log", fence=self.device):
-                    logger.info("iter %d: %s", i, {
-                        k: float(v) / running_n for k, v in running.items()})
+                    running = reduce_metrics(running, self.mesh)
+                    if main:
+                        logger.info("iter %d: %s", i, {
+                            k: float(v) / running_n for k, v in running.items()})
                 running, running_n = {}, 0
-            if save:
+            if save and main:
                 with stage_timer("train/checkpoint", fence=self.device):
                     saver.save(self.ckpt_folder,
                                train_state(model, opt, sched, generator, i), i)
@@ -245,10 +293,14 @@ class Trainer:
                     fg_bank, bg_bank = self.bank_rotator.advance()
                     self.data = self.data._replace(fg_bank=fg_bank, bg_bank=bg_bank)
         steps.close()
-        with stage_timer("train/checkpoint", fence=self.device):
-            saver.join()  # every interval save landed (or its failure raises)
-            ckpt_lib.save_state(self.ckpt_folder,
-                                train_state(model, opt, sched, generator,
-                                            cfg.total_iterations),
-                                cfg.total_iterations)
+        if main:
+            with stage_timer("train/checkpoint", fence=self.device):
+                saver.join()  # every interval save landed (or its failure raises)
+                ckpt_lib.save_state(self.ckpt_folder,
+                                    train_state(model, opt, sched, generator,
+                                                cfg.total_iterations),
+                                    cfg.total_iterations)
+        if mesh_lib.is_parallel(self.mesh):
+            profiling.add_slowest_rank(self.mesh, "train/steps")
+            mesh_lib.barrier(self.mesh)  # the final checkpoint is on disk
         return model

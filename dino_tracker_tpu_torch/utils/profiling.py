@@ -58,6 +58,42 @@ def reset_stage_timers():
     _STAGE_COUNTS.clear()
 
 
+def add_slowest_rank(mesh, prefix: str):
+    """Beside each of this rank's stage timers whose name starts with
+    ``prefix``, the largest total any rank of ``mesh`` holds for it, as
+    ``<name>/slowest_rank`` (one all_gather; every rank must hold the same
+    names, as ranks running the same loop do)."""
+    import torch.distributed as dist
+    names = sorted(n for n in _STAGE_TIMES
+                   if n.startswith(prefix) and not n.endswith("/slowest_rank"))
+    mine = torch.tensor([_STAGE_TIMES[n] for n in names], dtype=torch.float64,
+                        device=mesh.device)
+    every = [torch.empty_like(mine) for _ in range(mesh.world_size)]
+    dist.all_gather(every, mine, group=mesh.group)
+    for n, slowest in zip(names, torch.stack(every).max(dim=0).values.tolist()):
+        _STAGE_TIMES[f"{n}/slowest_rank"] = slowest
+        _STAGE_COUNTS[f"{n}/slowest_rank"] = _STAGE_COUNTS[n]
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launch count in this process (the
+    wrappers' counters, which callers reset)."""
+    from ..ops import blurpool, flash_attention, window_gather
+    return {"blurpool_down_nhwc": blurpool.blurpool_cuda.launches,
+            "blurpool_up_nhwc": blurpool.blurpool_cuda_bwd.launches,
+            "flash_attention": flash_attention.flash_attention_cuda.launches,
+            "corr_lookup": window_gather.corr_lookup_cuda.launches}
+
+
+def rank_report(device: Optional[torch.device] = None) -> dict:
+    """What one process ran: its stage report, its kernel launches and, on a
+    card, the peak device memory (what a multi-rank CLI returns per rank)."""
+    report = {"stages": stage_report(), "launches": kernel_launches()}
+    if device is not None and torch.device(device).type == "cuda":
+        report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return report
+
+
 def dump_stage_report() -> str:
     """The stage report as indented JSON."""
     return json.dumps(stage_report(), indent=2)

@@ -90,7 +90,8 @@ PORT_MODULES = ('runtime', 'cli.train', 'structures', 'training.train',
                 'preprocessing.best_buddies', 'ops.nms', 'cli.preprocess',
                 'parallel.launcher', 'cli.run_benchmark', 'cli.eval_benchmark',
                 'evaluation.metrics', 'utils.profiling', 'visualization.viz',
-                'cli.visualize', 'cli.mp4_to_frames')
+                'cli.visualize', 'cli.mp4_to_frames', 'parallel.mesh',
+                'cli._ranks', 'ops._guard')
 
 
 def test_port_imports_no_jax():
