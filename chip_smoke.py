@@ -6,7 +6,9 @@
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
-                                             # cuda:1, one video preprocessed, phase 12
+                                             # cuda:1, phases 13 and 12 over NCCL
+    python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
+                                             # K3) and 13 at T=50 over NCCL
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -130,12 +132,31 @@ Phases, one line or more each (any failure raises and exits non-zero):
      steps; the refine's 265.7 MB gather and its backward's all-reduce timed.
      Printed: each rank's ms/iter with the gates off and on, the slowest
      rank's, launches and peak memory, with the card's name and power limit.
-     With --mesh-devices N alone: N ranks, one card each, over NCCL.
-Each main path (phases 4, 5, 6, 8, 9, 11, 12) runs with every kernel's
-launch count set to 0 just before it and read just after (phase 12's ranks
-start from 0 in their own processes and report their counts). Then one JSON
-line with the kernels (K2 and K3 counted over phases 6 + 9 + 11 and 8 + 9 +
-11, K1 over 4 + 5 + 11 + 12), and last {"ok": true, "device": ...}.
+     With --mesh-devices N alone: N ranks, one card each, over NCCL, on the
+     directory phase 13 preprocessed with N ranks.
+  13. multi-device preprocessing: cli.preprocess with --devices 2
+     --share-device and with --devices 1 on two copies of phase 11's video
+     0's frames (T=8 at 854x476, ViT-L/14 at stride 7, RAFT-large with 24
+     iterations in f32, phase 9's checkpoints): each rank runs its share of
+     the ViT's frame batches (K2), of the decode batches (K3), of the
+     closest grids' frames, of the best-buddy pair batches and of the
+     ambiguity slabs, every batch whole; rank 0 writes. Checked: every
+     artifact of the two runs (trajectories of both passes, fg/bg banks,
+     mask jpgs' bytes, best-buddy coordinates, cosines, validity and
+     telemetry equal; f16 features within 1e-5 of max, r within 1e-5), each
+     rank's K2 and K3 launches against its share, every decode at 8 pairs.
+     Printed: each rank's stage seconds, launches, decode batch sizes, peak
+     memory and gathers (bytes and seconds), each stage at W=2 (rank 0 and
+     slowest rank) beside W=1, with the card's name and power limit. Over
+     gloo on one card the gathers go through host memory: an equality
+     check, not a speed path. With --mesh-devices N: N ranks over NCCL, one
+     card each (T=8, or --preprocess-frames T).
+Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13) runs with every kernel's
+launch count set to 0 just before it and read just after (the ranks of
+phases 12 and 13 start from 0 in their own processes and report their
+counts). Then one JSON line with the kernels (K2 and K3 counted over phases
+6 + 9 + 11 + 13 and 8 + 9 + 11 + 13, K1 over 4 + 5 + 11 + 12), and last
+{"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -219,6 +240,9 @@ MESH_NULL_GRADS = {"tracker_head.conv2.bias"}
 MESH_PX_TOL = 1e-3
 MESH_REPLICA_STEPS = 3
 MESH_TIMED_STEPS = 5  # warm bf16 steps timed under each set of gates
+# phase 13: f16 features and r of --devices N against --devices 1, in units
+# of the features' largest magnitude and absolute
+MESH_PRE_TOL = 1e-5
 
 
 def check(cond, msg):
@@ -1370,7 +1394,8 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     RAFT and ViT checkpoints' paths."""
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.cli import preprocess
-    from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig, feature_grid_size
+    from dino_tracker_tpu_torch.config import (PreprocessConfig, TrainConfig, add_config_paths,
+                                               feature_grid_size)
     from dino_tracker_tpu_torch.models import vit
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import window_gather as wg
@@ -1389,7 +1414,7 @@ def phase_preprocess(dev, t=PREPROCESS_T):
 
     reset_counts()
     t0 = time.perf_counter()
-    pipe = preprocess.main(args)
+    (report,) = preprocess.main(args)
     total = time.perf_counter() - t0
     launches = (fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1398,7 +1423,8 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     check(launches == expected, f"K2 / K3 launched {launches} times in the preprocess "
           f"CLI, expected {expected}")
 
-    paths = pipe.paths
+    data_path = args[args.index("--data-path") + 1]
+    paths = add_config_paths(data_path)
     trajs = video_io.load_npz(paths["trajectories_file"])["trajectories"]
     unfiltered = video_io.load_npz(paths["unfiltered_trajectories_file"])["trajectories"]
     check_trajectories(trajs, t, h, w, "filtered")
@@ -1419,12 +1445,12 @@ def phase_preprocess(dev, t=PREPROCESS_T):
           f"bb_truncation.json: {sweep}")
     bb = load_bb_data(os.path.join(paths["dino_bb_dir"], "dino_best_buddies_filtered.npz"), dev)
     check_bb_artifact(bb, t)
-    rows = pipe.telemetry["bb_ambiguity"]["rows_total"]
+    rows = report["telemetry"]["bb_ambiguity"]["rows_total"]
     check(rows == int(bb.valid.sum()), f"{rows} ambiguity rows for {int(bb.valid.sum())} buddies")
 
     # training on the directory, through the port's training data path
     tcfg = TrainConfig()
-    rt = runtime.DINOTrackerRuntime(pipe.data_path, tcfg, dev)
+    rt = runtime.DINOTrackerRuntime(data_path, tcfg, dev)
     data = rt.load_video_data()
     trainer = train.Trainer(tcfg, rt.tcfg, data, paths["ckpt_folder"], seed=2, device=dev)
     model = trainer.init_model().train()
@@ -1449,7 +1475,7 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     profile_ambiguity_slab(feats, bb_lib, h, w, cfg.dino_stride)
     del feats, every
 
-    tm = pipe.timings
+    tm = report["timings"]
     n = grid[0] * grid[1]
     pairs = t * (t - 1) // 2
     bb_s = tm["preprocess/best_buddies"]
@@ -1464,8 +1490,8 @@ def phase_preprocess(dev, t=PREPROCESS_T):
                                         "bb_ambiguity", "bb_save"))
           + f"; sweep {pairs} pairs at n={n} ({sweep_tflops:.1f} TFLOP/s f32), ambiguity "
           f"rows_total {rows} ({amb_tflops:.1f} TFLOP/s), m_max "
-          f"{pipe.telemetry['bb_ambiguity']['m_max']}, ambiguity phases "
-          f"{json.dumps(pipe.telemetry['bb_ambiguity']['phases'])}", flush=True)
+          f"{report['telemetry']['bb_ambiguity']['m_max']}, ambiguity phases "
+          f"{json.dumps(report['telemetry']['bb_ambiguity']['phases'])}", flush=True)
     rows_all = amb_all["rows_total"]
     print(f"preprocess: ambiguity with every mutual pair (no flow filter): rows_total "
           f"{rows_all} in {amb_all_s:.3f} s ({rows_all * 2.0 * n * c / amb_all_s / 1e12:.1f} "
@@ -2195,6 +2221,158 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
     return launches
 
 
+def compare_preprocessed(got_dir, want_dir):
+    """Every artifact of two preprocessed directories, under the bounds of
+    phase 13: trajectories (both passes) and the fg/bg banks, the mask jpgs'
+    bytes and the best buddies' coordinates, cosines, validity and
+    telemetry (its seconds aside) equal; each f16 feature artifact within
+    MESH_PRE_TOL of its max; r within MESH_PRE_TOL. -> [(what, value,
+    bound or None for equality, ok)]."""
+    from dino_tracker_tpu_torch.config import add_config_paths
+    from dino_tracker_tpu_torch.structures import load_bb_data
+    from dino_tracker_tpu_torch.utils import video_io
+    got, want = add_config_paths(got_dir), add_config_paths(want_dir)
+    rows = []
+    for key in ("trajectories_file", "unfiltered_trajectories_file", "fg_trajectories_file",
+                "bg_trajectories_file"):
+        a, b = (video_io.load_npz(p[key])["trajectories"] for p in (got, want))
+        rows.append((key, f"{a.shape} vs {b.shape}", None,
+                     a.shape == b.shape and np.array_equal(a, b, equal_nan=True)))
+    for key in ("dino_embed_video_path", "mask_dino_embed_video_path"):
+        a, b = (video_io.load_npz(p[key])["features"].astype(np.float32) for p in (got, want))
+        err = float(np.abs(a - b).max() / np.abs(b).max()) if a.shape == b.shape else np.inf
+        rows.append((key, err, MESH_PRE_TOL, err <= MESH_PRE_TOL))
+    names = sorted(os.listdir(want["masks_path"]))
+    same = names == sorted(os.listdir(got["masks_path"])) and all(
+        open(os.path.join(got["masks_path"], n), "rb").read()
+        == open(os.path.join(want["masks_path"], n), "rb").read() for n in names)
+    rows.append((f"{len(names)} mask jpgs", same, None, same))
+    bb = [load_bb_data(os.path.join(p["dino_bb_dir"], "dino_best_buddies_filtered.npz"))
+          for p in (got, want)]
+    for name, a, b in zip(bb[0]._fields, *bb):
+        if name == "r":
+            err = float((a - b).abs().max()) if a.shape == b.shape else np.inf
+            rows.append(("bb r", err, MESH_PRE_TOL, err <= MESH_PRE_TOL))
+        else:
+            ok = a.shape == b.shape and torch.equal(a, b)
+            rows.append((f"bb {name}", ok, None, ok))
+    tel = []
+    for p in (got, want):
+        with open(os.path.join(p["dino_bb_dir"], "bb_truncation.json")) as f:
+            tel.append({k: v for k, v in json.load(f).items() if k != "phases"})
+    rows.append(("bb_truncation.json", tel[0] == tel[1], None, tel[0] == tel[1]))
+    return rows
+
+
+def rank_shares(n_batches_per_call, w):
+    """Each rank's batches over successive calls of split_batches (whole
+    batches, the count split as split_sizes splits it, each call's longer
+    shares starting at the rank after the last call's, as the flow engine
+    moves them on)."""
+    from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+    shares, first = [0] * w, 0
+    for n in n_batches_per_call:
+        sizes = mesh_lib.split_sizes(n, w)
+        shares = [c + sizes[(r - first) % w] for r, c in enumerate(shares)]
+        first = (first + n) % w
+    return shares
+
+
+def phase_mesh_preprocess(dev, frames_dir, cli_args, n_ranks, share, smi, t):
+    """cli.preprocess with --devices n_ranks and with --devices 1 on two
+    copies of ``frames_dir`` (a frame folder), ``cli_args`` giving the
+    config and checkpoints; every artifact compared (compare_preprocessed).
+    Every rank's K2 and K3 launches are held to its share of the ViT's
+    frame batches and of the decode batches (whole batches: where a call has
+    fewer batches than ranks, some ranks get none of it), every decode to 8
+    pairs.
+    Printed: each rank's stage seconds, launches, decode batch sizes, peak
+    memory and gathers (bytes, seconds), each stage at W=n_ranks (rank 0
+    and the slowest rank) beside W=1. Returns the directories (n_ranks, 1)
+    and the K2 and K3 launches of both runs over every rank."""
+    from dino_tracker_tpu_torch.cli import preprocess
+    from dino_tracker_tpu_torch.config import PreprocessConfig
+    from dino_tracker_tpu_torch.utils import native_io, native_traj, profiling
+    cfg = PreprocessConfig.from_yaml(cli_args[cli_args.index("--config") + 1])
+    # the frame loader and the occupancy update are built at first use with
+    # g++: built here, so that no rank times the build inside its stage 1
+    native_io.get_lib()
+    native_traj.get_lib()
+    root = os.path.join(WORK_DIR, "mesh_preprocess")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {w: os.path.join(root, f"w{w}") for w in (n_ranks, 1)}
+    for d in dirs.values():
+        shutil.copytree(frames_dir, os.path.join(d, "video"))
+    mode = ["--share-device"] if share else []
+    how = (f"{n_ranks} ranks on {dev} over gloo (shared card)" if share
+           else f"{n_ranks} ranks on cuda:0..{n_ranks - 1} over NCCL")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for w, d in dirs.items():
+        reset_counts()
+        profiling.reset_stage_timers()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reports = preprocess.main(cli_args + ["--data-path", d, "--device", dev.type,
+                                              "--devices", str(w)] + (mode if w > 1 else []))
+        runs[w] = (reports, time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    rows = compare_preprocessed(dirs[n_ranks], dirs[1])
+    vit_batches = -(-t // cfg.extract_frames_per_batch)
+    blocks = max(cfg.dino_layer, cfg.mask_dino_layer) + 1
+    per = lambda n: -(-n // 8)
+    calls = [2 * per(t - 1)] + [2 * per(t - 1 - s) for s in range(t - 1)]
+    launches = [0, 0]
+    for w in (n_ranks, 1):
+        reports = runs[w][0]
+        want = list(zip((blocks * n for n in rank_shares([vit_batches], w)),
+                        (cfg.raft_iters * n for n in rank_shares(calls, w))))
+        got = [(r["launches"]["flash_attention"], r["launches"]["corr_lookup"])
+               for r in reports]
+        sizes = [r["telemetry"]["raft"]["decode_batch_sizes"] for r in reports]
+        check(got == want and sum(g[0] for g in got) > 0 and sum(g[1] for g in got) > 0,
+              f"--devices {w}: K2 / K3 launched {got} times per rank, expected {want}")
+        check(all(set(z) <= {8} for z in sizes), f"--devices {w}: decode batches {sizes}")
+        launches[0] += sum(g[0] for g in got)
+        launches[1] += sum(g[1] for g in got)
+        for r, rep in enumerate(reports):
+            stages = ", ".join(f"{k.split('/')[1]} {v:.3f}" for k, v in rep["timings"].items()
+                               if k.startswith("preprocess/"))
+            stages += " (stage 1: " + ", ".join(
+                f"{k} {rep['timings'][k]:.3f}" for k in ("encode", "adjacent_flows",
+                                                         "direct_sweep_and_chaining", "harvest")
+                if k in rep["timings"]) + "; best buddies: " + ", ".join(
+                f"{k[3:]} {rep['timings'][k]:.3f}" for k in (
+                    "bb_closest_grids", "bb_sweep", "bb_compaction", "bb_ambiguity", "bb_save")
+                if k in rep["timings"]) + ")"
+            gathers = ", ".join(f"{k.split('/')[1]} {v['bytes'] / 1e6:.1f} MB in "
+                                f"{v['total_s']:.3f} s ({v['calls']} calls)"
+                                for k, v in rep["stages"].items() if k.startswith("gather/"))
+            print(f"mesh preprocess: --devices {w} rank {r}: stage s {stages}; K2 {got[r][0]}, "
+                  f"K3 {got[r][1]} launches; decode batches (pairs: count) {sizes[r]}; "
+                  f"peak {rep.get('peak_bytes', 0) / 2**30:.2f} GiB; gathers: "
+                  f"{gathers or 'none'} [{smi}]", flush=True)
+    stage_names = [k for k in runs[1][0][0]["timings"] if k.startswith("preprocess/")]
+    table = []
+    for k in stage_names:
+        per_rank = [r["timings"].get(k, 0.0) for r in runs[n_ranks][0]]
+        table.append(f"{k.split('/')[1]} {per_rank[0]:.3f} / {max(per_rank):.3f} / "
+                     f"{runs[1][0][0]['timings'][k]:.3f}")
+    print(f"mesh preprocess: cli.preprocess T={t} 854x476 {cfg.dino_model_name} + RAFT-large, "
+          f"{how} against one process on {dev}: {runs[n_ranks][1]:.2f} s against "
+          f"{runs[1][1]:.2f} s; stage s at W={n_ranks} (rank 0 / slowest rank) and W=1: "
+          + "; ".join(table) + f" [{smi}]", flush=True)
+    ok = all(r[3] for r in rows)
+    print(f"mesh preprocess: --devices {n_ranks} against --devices 1, every artifact: "
+          + ", ".join(f"{what} {value if bound is None else f'{value:.3g} (bound {bound})'}"
+                      for what, value, bound, _ in rows)
+          + f": {'met' if ok else 'NOT MET'}", flush=True)
+    check(ok, "multi-rank preprocessing wrote other artifacts than one device")
+    return dirs, launches
+
+
 def build_kernels(sources):
     """nvcc for each (name, module) at once; prints each source's seconds and
     what ptxas reports for its kernels."""
@@ -2224,9 +2402,10 @@ def main():
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="run only the kernel builds, the launches on cuda:1, one "
-                         "video preprocessed and phase 12 with this many ranks, one "
-                         "card each over NCCL (needs that many cards)")
+                    help="run only the kernel builds, the launches on cuda:1 and "
+                         "phases 13 and 12 with this many ranks, one card each over "
+                         "NCCL (needs that many cards); with --preprocess-frames T, "
+                         "only the K2 and K3 builds and phase 13 at T frames")
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
@@ -2265,36 +2444,46 @@ def main():
         print(f"raft: one decode batch with torch.backends.cudnn.benchmark on: "
               f"{ms:.2f} ms", flush=True)
         return
+    if args.mesh_devices:
+        n = args.mesh_devices
+        check(n >= 2 and torch.cuda.device_count() >= n, f"--mesh-devices {n} needs "
+              f"{n} >= 2 CUDA devices, {torch.cuda.device_count()} visible")
+        print("devices: " + " | ".join(smi_lines[:n]), flush=True)
+        smis = " | ".join(smi_lines[:n])
+    if args.mesh_devices and args.preprocess_frames:  # phase 13 alone, over NCCL
+        from dino_tracker_tpu_torch.config import PreprocessConfig
+        build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
+        t = args.preprocess_frames
+        cfg = PreprocessConfig(max_frames=t)
+        root = os.path.join(WORK_DIR, "mesh_inputs")
+        shutil.rmtree(root, ignore_errors=True)
+        write_frames(os.path.join(root, "video"), t, cfg.video_resh, cfg.video_resw, dev)
+        raft_path, vit_path = write_weights(root, cfg, dev)
+        phase_mesh_preprocess(dev, os.path.join(root, "video"),
+                              ["--config", write_preprocess_yaml(root, cfg), "--raft-checkpoint",
+                               raft_path, "--dino-checkpoint", vit_path], n, False, smis, t)
+        print_ok()
+        return
     if args.preprocess_frames:  # the preprocess CLI alone
         build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
         phase_preprocess(dev, args.preprocess_frames)
         return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
                    ("corr_lookup.cu", wg)])
-    if args.mesh_devices:  # phase 12 over one card per rank
-        n = args.mesh_devices
-        check(n >= 2 and torch.cuda.device_count() >= n, f"--mesh-devices {n} needs "
-              f"{n} >= 2 CUDA devices, {torch.cuda.device_count()} visible")
-        print("devices: " + " | ".join(smi_lines[:n]), flush=True)
+    if args.mesh_devices:  # phases 13 and 12 over one card per rank
         phase_other_card(bp, torch.device("cuda", 1))
         root = os.path.join(WORK_DIR, "e2e")
         shutil.rmtree(root, ignore_errors=True)
         opts, _ = write_e2e_inputs(root, E2E_T, E2E_ITERATIONS, E2E_ITERATIONS // 2,
                                    E2E_QUERY_FRAMES, E2E_POINTS, dev, E2E_SHIFTS[:1])
         opts = dict(zip(opts[::2], opts[1::2]))
-        video_dir = os.path.join(opts["--dataset-root-dir"], "0")
-        from dino_tracker_tpu_torch.cli import preprocess
-        reset_counts()
-        t0 = time.perf_counter()
-        preprocess.main(["--config", opts["--preprocess-config"], "--data-path", video_dir,
-                         "--raft-checkpoint", opts["--raft-checkpoint"],
-                         "--dino-checkpoint", opts["--dino-checkpoint"], "--device", "cuda"])
-        pre = (fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
-        print(f"mesh: preprocessed one video of T={E2E_T} at 854x476 in "
-              f"{time.perf_counter() - t0:.2f} s (K2 {pre[0]}, K3 {pre[1]} launches)",
-              flush=True)
-        phase_mesh(dev, video_dir, opts["--train-config"], opts["--benchmark-pickle-path"],
-                   n, False, " | ".join(smi_lines[:n]))
+        dirs, _ = phase_mesh_preprocess(
+            dev, os.path.join(opts["--dataset-root-dir"], "0", "video"),
+            ["--config", opts["--preprocess-config"], "--raft-checkpoint",
+             opts["--raft-checkpoint"], "--dino-checkpoint", opts["--dino-checkpoint"]],
+            n, False, smis, E2E_T)
+        phase_mesh(dev, dirs[n], opts["--train-config"], opts["--benchmark-pickle-path"],
+                   n, False, smis)
         print_ok()
         return
     if args.e2e_frames:  # the whole system alone, one video at DAVIS length
@@ -2334,17 +2523,23 @@ def main():
     mesh = phase_mesh(dev, os.path.join(e2e_root, "videos", "0"),
                       os.path.join(e2e_root, "train.yaml"),
                       os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS, True, smi)
+    _, mesh_pre = phase_mesh_preprocess(
+        dev, os.path.join(e2e_root, "videos", "0", "video"),
+        ["--config", os.path.join(e2e_root, "preprocessing.yaml"), "--raft-checkpoint",
+         weights[0], "--dino-checkpoint", weights[1]], MESH_RANKS, True, smi, E2E_T)
     print_kernels((k1, k1_bwd, k2, k3),
                   (infer_launches + train_launches[0] + e2e[0] + mesh[0],
-                   train_launches[1] + e2e[1] + mesh[1], vit_launches + pre_k2 + e2e[2],
-                   raft_launches + pre_k3 + e2e[3]))
+                   train_launches[1] + e2e[1] + mesh[1],
+                   vit_launches + pre_k2 + e2e[2] + mesh_pre[0],
+                   raft_launches + pre_k3 + e2e[3] + mesh_pre[1]))
     print_ok()
 
 
 def print_kernels(numbers, launches):
     """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
-    K3 also the preprocess CLI's, every kernel also the whole system's, K1
-    also every rank's of phase 12), each counted from 0; K1 ms / plain_ms /
+    K3 also the preprocess CLI's and every rank's of phase 13, every kernel
+    also the whole system's, K1 also every rank's of phase 12), each counted
+    from 0; K1 ms / plain_ms /
     bound_ms: the sum over its three bf16 shapes; K2's at the ViT stage's
     shape; K3's at one decode batch's."""
     rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),

@@ -1,4 +1,4 @@
-"""``--devices N`` of the port's training and inference CLIs.
+"""``--devices N`` of the port's preprocessing, training and inference CLIs.
 
 0 or 1: one process on ``--device``. N > 1: N processes under
 ``torch.distributed`` (``parallel/mesh.py``): with ``--device cuda`` rank r

@@ -27,13 +27,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..parallel import mesh as mesh_lib
 from .nn import _exact_f32_convs, exact_f32_matmuls
 
 
@@ -247,28 +248,33 @@ def attention_maps(model: VisionTransformer, frames_nchw: torch.Tensor, stride: 
 def extract_feature_video(model: VisionTransformer, video_tchw: torch.Tensor,
                           stride: int = 7, layer: Union[int, Sequence[int], None] = None,
                           facet: str = "tokens", frames_per_batch: int = 4,
-                          compute_dtype: torch.dtype = torch.float32):
+                          compute_dtype: torch.dtype = torch.float32,
+                          mesh: Optional[mesh_lib.Mesh] = None):
     """video (T×3×H×W in [0, 1], on the model's device) -> feature video
     T×D×h0×w0 f32; a list of them, from one sweep, when ``layer`` is a
     sequence (JAX ``vit.py:256-328``).
 
     ImageNet-normalized frames go through the model ``frames_per_batch`` at
     a time; the last batch is not padded (the JAX package pads it only to
-    keep its compiled shapes)."""
+    keep its compiled shapes). With ``mesh`` each rank runs its share of
+    those batches, each whole, and every rank gets the whole feature
+    video(s)."""
     single = layer is None or isinstance(layer, int)
     layers = ([model.cfg.depth - 1] if layer is None
               else [layer] if isinstance(layer, int) else list(layer))
     dev = video_tchw.device
     mean = torch.tensor(IMAGENET_MEAN, device=dev).view(1, 3, 1, 1)
     std = torch.tensor(IMAGENET_STD, device=dev).view(1, 3, 1, 1)
-    chunks: List[List[torch.Tensor]] = [[] for _ in layers]
+    t = video_tchw.shape[0]
+    starts = range(0, t, frames_per_batch)
+    mine, rows = mesh_lib.split_batches([min(frames_per_batch, t - s) for s in starts], mesh)
+    outputs: List[List[torch.Tensor]] = []
     with torch.no_grad():
-        for s in range(0, video_tchw.shape[0], frames_per_batch):
+        for s in (starts[i] for i in mine):
             frames = (video_tchw[s:s + frames_per_batch].float() - mean) / std
             outs, (h0, w0) = model.forward_features(frames, stride, layers, facet,
                                                     compute_dtype)
-            for c, o in zip(chunks, outs):
-                n, _, d = o.shape
-                c.append(o[:, 1:].transpose(1, 2).reshape(n, d, h0, w0).float())
-    results = [torch.cat(c) for c in chunks]
+            outputs.append([o[:, 1:].transpose(1, 2).reshape(o.shape[0], o.shape[2], h0, w0)
+                            .float() for o in outs])
+    results = mesh_lib.gather_batches(outputs, rows, mesh, "vit_features", len(layers))
     return results[0] if single else results

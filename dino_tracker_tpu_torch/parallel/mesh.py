@@ -5,15 +5,24 @@ The JAX package shards one program over a one-axis device mesh (``data``):
 the train step's point batch and DeltaDINO frame set, the cycle loss's
 per-pair point axis, the refine cache's frames and inference's flat
 prediction rows, with parameters replicated and XLA inserting the gradient
-psum. The port runs the same layout the way PyTorch does: one process per
-rank under ``torch.distributed`` (NCCL with one card per rank; gloo on the
-CPU), every rank holding the whole model, the whole video and the same
-random generator, and taking its share of each sharded axis
-(``split_rows``). Collectives are the port's own autograd Functions: the
+psum; in preprocessing the ViT frames, RAFT's frames and pairs, the
+best-buddy pairs and the ambiguity rows. The port runs the same layout the
+way PyTorch does: one process per rank under ``torch.distributed`` (NCCL
+with one card per rank; gloo on the CPU), every rank holding the whole
+model, the whole video and the same random generator, and taking its share
+of each sharded axis (``split_rows``). Collectives are the port's own autograd Functions: the
 gather of a sharded axis (``all_gather_rows``, whose backward sums the
 cotangent over ranks and keeps this rank's rows) and a differentiable sum
 (``all_reduce_sum``); ``torch.distributed.nn`` is deprecated and
 ``nn.SyncBatchNorm`` refuses CPU tensors.
+
+Preprocessing shards lists of batches instead of rows (``split_batches``):
+each rank runs a contiguous share of the one-device path's batches (ViT
+frame batches, RAFT decode batches, best-buddy pair batches, ambiguity
+slabs), each batch whole, so every call a rank makes is one the one-device
+path makes, at its shape; ``gather_batches`` puts the outputs back together
+in batch order on every rank, whatever their dtype. ``broadcast_object``
+hands rank 0's decision (a small host value) to every rank.
 
 ``spawn`` starts the ranks and returns what each one returned. A world of
 size 1 (``mesh=None`` everywhere) is the single-device path and needs no
@@ -36,6 +45,9 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -113,7 +125,10 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 def _gather_padded(x: torch.Tensor, sizes: Sequence[int], group) -> torch.Tensor:
     """Every rank's rows in rank order: each rank's ``x`` (``sizes[rank]``
-    rows) padded to the longest, one all_gather, the padding dropped."""
+    rows) padded to the longest, one all_gather, the padding dropped. bool
+    travels as uint8, which gloo and NCCL both take."""
+    if x.dtype == torch.bool:
+        return _gather_padded(x.view(torch.uint8), sizes, group).view(torch.bool)
     longest = max(sizes)
     if x.shape[0] < longest:
         x = torch.cat([x, x.new_zeros((longest - x.shape[0], *x.shape[1:]))])
@@ -154,6 +169,69 @@ def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int,
                          f"of {n}; split_rows gives it {sizes[mesh.rank]}")
     y = _GatherRows.apply(x.movedim(dim, 0), tuple(sizes), mesh.rank, mesh.group)
     return y.movedim(0, dim)
+
+
+def broadcast_object(value: Any, mesh: Optional[Mesh], src: int = 0) -> Any:
+    """Rank ``src``'s ``value`` (a small picklable host value) on every rank;
+    ``value`` itself on one device. For a decision every rank must take
+    alike though only rank 0 may look (a file rank 0 is about to write)."""
+    if not is_parallel(mesh):
+        return value
+    box = [value if mesh.rank == src else None]
+    # NCCL moves CUDA tensors only; gloo takes host tensors on any rank
+    device = mesh.device if dist.get_backend(mesh.group) == "nccl" else torch.device("cpu")
+    dist.broadcast_object_list(box, src=src, group=mesh.group, device=device)
+    return box[0]
+
+
+def split_batches(batch_rows: Sequence[int], mesh: Optional[Mesh], first: int = 0
+                  ) -> tuple[range, list[int]]:
+    """Whole batches for each rank: ``batch_rows[i]`` is what batch i of the
+    one-device path yields. Returns this rank's batch indices (a contiguous
+    range in rank order: the batch count split as ``split_sizes`` splits it,
+    its longer shares going to the ranks from ``first`` on, cyclically) and
+    each rank's rows, the sum over its batches, which ``gather_batches``
+    takes. A caller of many short calls moves ``first`` on by each call's
+    batch count, so the ranks' loads differ by one batch at most. One
+    device: every batch."""
+    w = world_size(mesh)
+    sizes = split_sizes(len(batch_rows), w)
+    parts = [sizes[(r - first) % w] for r in range(w)]
+    ends = np.cumsum([0] + parts).tolist()
+    rows = [int(sum(batch_rows[a:b])) for a, b in zip(ends[:-1], ends[1:])]
+    rank = 0 if mesh is None else mesh.rank
+    return range(ends[rank], ends[rank + 1]), rows
+
+
+def gather_batches(outputs: Sequence[Sequence[torch.Tensor]], rows: Sequence[int],
+                   mesh: Optional[Mesh], name: str, n_out: int = 1) -> list[torch.Tensor]:
+    """The outputs of every rank's batches, in batch order, on every rank.
+
+    ``outputs`` holds one tuple of ``n_out`` tensors for each batch this rank
+    ran (``split_batches``), batch rows leading; returns ``n_out`` tensors,
+    each its batches' concatenation over every rank (any dtype). A rank
+    with no batch learns the trailing shape and dtype from the first rank
+    with one: call it with at least one batch in all. Each
+    gather is timed, its bytes beside it, as the stage timer
+    ``gather/<name>`` (waiting for the slowest rank included)."""
+    cat = [torch.cat([o[i] for o in outputs]) if outputs else None for i in range(n_out)]
+    if not is_parallel(mesh):
+        return cat
+    if sum(rows) == 0:
+        raise ValueError("gather_batches needs at least one batch over the ranks")
+    if min(rows) == 0:
+        src = next(r for r, n in enumerate(rows) if n)
+        metas = broadcast_object(None if cat[0] is None else
+                                 [(tuple(x.shape[1:]), x.dtype) for x in cat], mesh, src)
+        cat = [torch.empty((0, *shape), dtype=dtype, device=mesh.device)
+               if x is None else x for x, (shape, dtype) in zip(cat, metas)]
+    out = []
+    for x in cat:
+        nbytes = sum(rows) * int(np.prod(x.shape[1:])) * x.element_size()
+        profiling.device_fence(x.device)
+        with profiling.stage_timer(f"gather/{name}", fence=x.device, nbytes=nbytes):
+            out.append(_gather_padded(x, rows, mesh.group))
+    return out
 
 
 def all_reduce_grads(model: torch.nn.Module, mesh: Optional[Mesh]):

@@ -18,6 +18,13 @@ time as one batched f32 GEMM with TF32 off (a mutual argmax flips under
 TF32), with the optical-flow filter fused before any capacity cap. Buddies
 are compacted on the device. Everything here is plain PyTorch: the JAX
 stage calls no Pallas kernel.
+
+With a mesh (JAX ``:136-348``, ``:495-627``) each rank runs its share of the
+sweep's pair batches, of the closest grids' frames and of the ambiguity's
+slabs, each whole; the raw outputs are gathered on every rank before the
+compaction (the adaptive cap needs the largest count over all pairs) and
+the ambiguity's r in row order before the scatter, so the telemetry is the
+global one on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from ..models.nn import exact_f32_matmuls
 from ..ops.nms import nms_top2_peaks, topk_mask
+from ..parallel import mesh as mesh_lib
 from ..structures import BBData
 from ..utils.coords import bb_meshgrid
 
@@ -119,7 +127,8 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
                          stride: int = 7, patch_size: int = 14,
                          cap: Optional[int] = None,
                          unfiltered_trajectories=None,
-                         telemetry: Optional[dict] = None) -> BBData:
+                         telemetry: Optional[dict] = None,
+                         mesh: Optional[mesh_lib.Mesh] = None) -> BBData:
     """Mutual-NN sweep over every frame pair -> BBData on the features'
     device (JAX ``extract_best_buddies``, ``:136-348``).
 
@@ -134,8 +143,9 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
 
     ``telemetry`` (a dict, filled in place) gets the capacity-cap stats —
     cap, adaptive, total_pairs, truncated_pairs, truncated_frac, max_count,
-    mean_count — and ``phases``, the seconds of closest_grids_s, sweep_s and
-    compaction_s."""
+    mean_count — and ``phases``, this rank's seconds of closest_grids_s,
+    sweep_s (its gather included) and compaction_s. With ``mesh`` every
+    rank returns the whole BBData."""
     _check_grid(features_tchw, h, w, stride, patch_size)
     t = features_tchw.shape[0]
     dev = features_tchw.device
@@ -150,16 +160,19 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
     keep_fn = None
     if unfiltered_trajectories is not None:
         trajs = torch.as_tensor(unfiltered_trajectories, device=dev)
-        closest = closest_trajectory_grids(trajs, grid)  # T×n
+        closest = closest_trajectory_grids(trajs, grid, mesh=mesh)  # T×n
         invalid = trajs.isnan().any(-1)  # N×T
     phases("closest_grids_s")
 
     pairs = torch.triu_indices(t, t, 1, device=dev)  # (s, u), s < u, row-major
     bsz = min(_PAIR_BATCH, max(1, _AFFINITY_BUDGET_BYTES // (n * n * 4)))
-    logger.info("best-buddy sweep: %d frame pairs, %d a batch, n=%d tokens",
-                pairs.shape[1], bsz, n)
+    starts = range(0, pairs.shape[1], bsz)
+    mine, rows = mesh_lib.split_batches([min(bsz, pairs.shape[1] - b0) for b0 in starts],
+                                        mesh)
+    logger.info("best-buddy sweep: %d frame pairs, %d a batch, n=%d tokens; %d of %d "
+                "batches here", pairs.shape[1], bsz, n, len(mine), len(starts))
     outs = []
-    for b0 in range(0, pairs.shape[1], bsz):
+    for b0 in (starts[i] for i in mine):
         s_idx, u_idx = pairs[:, b0:b0 + bsz]
         if unfiltered_trajectories is not None:
             def keep_fn(src_max, s_idx=s_idx, u_idx=u_idx):
@@ -169,7 +182,7 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
                 tgt_traj = closest[u_idx].gather(1, src_max)
                 return invalid[src_traj, u_idx[:, None]] & invalid[tgt_traj, s_idx[:, None]]
         outs.append(_mutual_nn_core(fn[s_idx], fn[u_idx], core_cap, keep_fn))
-    outs = [torch.cat(parts) for parts in zip(*outs)]
+    outs = mesh_lib.gather_batches(outs, rows, mesh, "bb_sweep", 3 if raw else 5)
     phases("sweep_s")
 
     if raw:
@@ -227,7 +240,8 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
 # ---------------------------------------------------------------------------
 
 def closest_trajectory_grids(trajectories_nt2, grid_n2: torch.Tensor,
-                             chunk: int = 8192) -> torch.Tensor:
+                             chunk: int = 8192,
+                             mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """For each frame f and point g of a row-major lattice grid (as
     ``bb_meshgrid`` makes it): the index of the nearest trajectory at frame
     f, on the grid's device. Returns T×n int64 (JAX
@@ -237,7 +251,8 @@ def closest_trajectory_grids(trajectories_nt2, grid_n2: torch.Tensor,
     sqrt(dx·dx + dy·dy) in f32, as the JAX package computes them, and equal
     distances go to the first index. The lattice makes dx² a per-column and
     dy² a per-row table, so each chunk costs one broadcast add, a sqrt and a
-    min over n × chunk."""
+    min over n × chunk. With ``mesh`` each rank takes its share of the
+    frames and every rank gets all of them."""
     dev = grid_n2.device
     xs, ys = grid_n2[:, 0].unique(), grid_n2[:, 1].unique()
     lattice = torch.stack(torch.meshgrid(ys, xs, indexing="ij")[::-1], -1).reshape(-1, 2)
@@ -247,8 +262,9 @@ def closest_trajectory_grids(trajectories_nt2, grid_n2: torch.Tensor,
                               nan=1e12).transpose(0, 1)  # T×N×2
     t, n_traj = coords.shape[:2]
     n = grid_n2.shape[0]
-    out = torch.empty((t, n), dtype=torch.int64, device=dev)
-    for f in range(t):
+    mine, rows = mesh_lib.split_batches([1] * t, mesh)
+    out = []
+    for f in mine:
         best_d = torch.full((n,), float("inf"), device=dev)
         best_i = torch.zeros(n, dtype=torch.int64, device=dev)
         for off in range(0, n_traj, chunk):
@@ -260,8 +276,8 @@ def closest_trajectory_grids(trajectories_nt2, grid_n2: torch.Tensor,
             # an earlier chunk keeps an equal distance: the first index wins
             best_i = torch.where(cd < best_d, ci + off, best_i)
             best_d = torch.minimum(cd, best_d)
-        out[f] = best_i
-    return out
+        out.append((best_i[None],))
+    return mesh_lib.gather_batches(out, rows, mesh, "bb_closest_grids")[0]
 
 
 def of_filter_best_buddies(bb: BBData, trajectories_nt2, h: int, w: int,
@@ -302,7 +318,8 @@ def compute_bb_ambiguity(bb: BBData, features_tchw: torch.Tensor, h: int, w: int
                          stride: int = 7, box_size: float = 30.0,
                          iou_thresh: float = 0.2, topk: int = 400,
                          patch_size: int = 14, rows_per_slab: int = 8192,
-                         telemetry: Optional[dict] = None) -> BBData:
+                         telemetry: Optional[dict] = None,
+                         mesh: Optional[mesh_lib.Mesh] = None) -> BBData:
     """Ambiguity r of every valid buddy, symmetrised as max(r_fwd, r_bwd)
     over the two directions of a pair (JAX ``compute_bb_ambiguity``,
     ``:495-627``), on the features' device.
@@ -312,8 +329,9 @@ def compute_bb_ambiguity(bb: BBData, features_tchw: torch.Tensor, h: int, w: int
     take one f32 product (TF32 off) with frame u per slab of at most
     ``rows_per_slab`` rows, then ``nms_top2_peaks``. r of an invalid slot
     stays 1.0. ``telemetry`` gets ``phases`` (group_rows_s, slabs_s,
-    scatter_s), ``m_max`` (the most rows of one target frame) and
-    ``rows_total``."""
+    scatter_s; this rank's, the gather in scatter_s), ``m_max`` (the most rows
+    of one target frame) and ``rows_total``. With ``mesh`` each rank runs its
+    share of the slabs and every rank returns the whole BBData."""
     _check_grid(features_tchw, h, w, stride, patch_size)
     t = features_tchw.shape[0]
     dev = features_tchw.device
@@ -336,17 +354,21 @@ def compute_bb_ambiguity(bb: BBData, features_tchw: torch.Tensor, h: int, w: int
     r_out = torch.ones((t, t, cap), device=dev)
     phases("group_rows_s")
     ends = np.cumsum(per_frame)
-    r_rows = torch.empty(rows.shape[0], device=dev)
-    for u in np.nonzero(per_frame)[0].tolist():
-        for a in range(ends[u] - per_frame[u], ends[u], rows_per_slab):
-            s, _, slot = rows[a:min(a + rows_per_slab, ends[u])].unbind(1)
-            sfeat = fn[s, tok[s, u, slot]]  # slab×C
-            with exact_f32_matmuls(sfeat):
-                sim = sfeat @ fn[u].T
-            r_rows[a:a + len(s)] = nms_top2_peaks(sim, grid, topk=topk, box_size=box_size,
-                                                  iou_thresh=iou_thresh)[1]
+    slabs = [(u, a, min(a + rows_per_slab, ends[u])) for u in np.nonzero(per_frame)[0].tolist()
+             for a in range(ends[u] - per_frame[u], ends[u], rows_per_slab)]
+    mine, counts = mesh_lib.split_batches([b - a for _, a, b in slabs], mesh)
+    r_slabs = []
+    for u, a, b in (slabs[i] for i in mine):
+        s, _, slot = rows[a:b].unbind(1)
+        sfeat = fn[s, tok[s, u, slot]]  # slab×C
+        with exact_f32_matmuls(sfeat):
+            sim = sfeat @ fn[u].T
+        r_slabs.append((nms_top2_peaks(sim, grid, topk=topk, box_size=box_size,
+                                       iou_thresh=iou_thresh)[1],))
     phases("slabs_s")
-    r_out[tuple(rows.unbind(1))] = r_rows
+    if slabs:
+        r_out[tuple(rows.unbind(1))] = mesh_lib.gather_batches(
+            r_slabs, counts, mesh, "bb_ambiguity")[0]
     # the reverse list mirrors the forward one: slot k of (s, u) pairs with
     # slot k of (u, s)
     r_sym = torch.maximum(r_out, r_out.transpose(0, 1))

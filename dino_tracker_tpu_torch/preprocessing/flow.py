@@ -12,20 +12,28 @@ reason: with TF32 off, cuDNN's f32 algorithm choice at 4-7 pairs ran a
 decode batch in 3.4-4.0 s on an H100, against 0.45 s at 8 pairs and 0.06-0.12
 s at 1-3 (PERF.md).
 
+With a mesh (JAX ``flow.py:44-245``) each rank encodes its share of the
+encoder's frame batches and decodes its share of the decode batches, each
+batch whole and padded as on one device, so no rank decodes another batch
+size (the JAX layout, a global batch split over the ranks, would hand each
+of 2 ranks 4 pairs); encodings and flows are gathered in order on every
+rank, and the cycle masks computed after the gather.
+
 Not ported (XLA dispatch and TPU relay work): ``direct_sweep_traceable``,
-the ``_decode_jit``/``_sweep_jit`` programs, ``retry_transient`` and the
-mesh.
+the ``_decode_jit``/``_sweep_jit`` programs and ``retry_transient``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models import raft
+from ..parallel import mesh as mesh_lib
 from ..utils.sampling import bilinear_sampler_pixel
 
 
@@ -40,22 +48,31 @@ class RaftFlowEngine:
     encode_batch: int = 8
     compute_dtype: torch.dtype = torch.float32  # convs; corr and flow stay f32
     device: torch.device = torch.device("cuda")
+    mesh: Optional[mesh_lib.Mesh] = None  # ranks sharing the batches
 
     def __post_init__(self):
         self.t, _, self.h, self.w = self.video_tchw.shape
         self.padder = raft.InputPadder(self.video_tchw.shape)
         self._enc = None  # (fmap, net, inp), T leading, on the device
         self._adj = None  # cached adjacent flows
+        # pairs in each raft_decode call this process made -> calls
+        self.decode_batch_sizes = collections.Counter()
+        self._first_rank = 0  # the rank the next call's longer shares start at
 
     def encodings(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The encoders' outputs for every frame, computed once, in batches
-        of ``encode_batch`` frames."""
+        of ``encode_batch`` frames (this rank's batches, then gathered)."""
         if self._enc is None:
             video = self.video_tchw.to(self.device)
-            chunks = [raft.raft_encode(self.model, self.padder.pad(video[s:s + self.encode_batch]),
-                                       self.compute_dtype)
-                      for s in range(0, self.t, self.encode_batch)]
-            self._enc = tuple(torch.cat(xs) for xs in zip(*chunks))
+            starts = range(0, self.t, self.encode_batch)
+            mine, rows = mesh_lib.split_batches(
+                [min(self.encode_batch, self.t - s) for s in starts], self.mesh)
+            outputs = [raft.raft_encode(self.model,
+                                        self.padder.pad(video[s:s + self.encode_batch]),
+                                        self.compute_dtype)
+                       for s in (starts[i] for i in mine)]
+            self._enc = tuple(mesh_lib.gather_batches(outputs, rows, self.mesh,
+                                                      "raft_encodings", 3))
         return self._enc
 
     def decode(self, idx_a: np.ndarray, idx_b: np.ndarray) -> torch.Tensor:
@@ -69,23 +86,38 @@ class RaftFlowEngine:
                                   dtype=torch.long, device=self.device)
                   for idx in (np.asarray(idx_a), np.asarray(idx_b)))
         fmaps, nets, inps = self.encodings()
+        self.decode_batch_sizes[len(ia)] += 1
         flow = raft.raft_decode(self.model, fmaps[ia], fmaps[ib], nets[ia], inps[ia],
                                 self.num_iters)
         return self.padder.unpad(flow[:n])
 
-    def run_pairs(self, idx_a: np.ndarray, idx_b: np.ndarray) -> torch.Tensor:
-        """Flow a→b for index arrays, ``pair_batch`` pairs a decode ->
-        N×2×h×w on the device."""
+    def _batches(self, idx_a: np.ndarray, idx_b: np.ndarray
+                 ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Index arrays cut into decode batches of ``pair_batch`` pairs."""
         bsz = self.pair_batch
-        return torch.cat([self.decode(idx_a[s:s + bsz], idx_b[s:s + bsz])
-                          for s in range(0, len(idx_a), bsz)])
+        return [(idx_a[s:s + bsz], idx_b[s:s + bsz]) for s in range(0, len(idx_a), bsz)]
+
+    def _decode_batches(self, batches) -> torch.Tensor:
+        """Flow a→b of every pair of ``batches`` (``_batches``' pieces), in
+        order -> N×2×h×w on the device: this rank decodes its share of the
+        batches, the flows are gathered. The longer shares of successive
+        calls go round the ranks, so over a sweep of short calls the ranks'
+        decodes differ by one at most (on the first ranks alone, 4 ranks
+        would decode 104, 104, 78 and 78 of the 364 batches of T=50)."""
+        mine, rows = mesh_lib.split_batches([len(a) for a, _ in batches], self.mesh,
+                                            first=self._first_rank)
+        self._first_rank = (self._first_rank + len(batches)) % mesh_lib.world_size(self.mesh)
+        flows = [(self.decode(*batches[i]),) for i in mine]
+        return mesh_lib.gather_batches(flows, rows, self.mesh, "raft_flows")[0]
 
     def adjacent_flows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """((t-1)×2×h×w forward i→i+1, backward i+1→i) on the device.
         Cached: both trajectory passes read them."""
         if self._adj is None:
             idx = np.arange(self.t - 1)
-            self._adj = (self.run_pairs(idx, idx + 1), self.run_pairs(idx + 1, idx))
+            flows = self._decode_batches(self._batches(idx, idx + 1)
+                                         + self._batches(idx + 1, idx))
+            self._adj = (flows[:self.t - 1], flows[self.t - 1:])
         return self._adj
 
     def direct_flows(self, start: int, threshold: float
@@ -93,18 +125,20 @@ class RaftFlowEngine:
         """Direct flows start→f for every f > start with their cycle masks
         (reference :99-160), on the device and padded to the full frame
         count: ((t-1)×h×w×2 flows, (t-1)×h×w f32 masks); rows ≥ t-1-start
-        are zero. Each batch decodes start→f and f→start."""
+        are zero. The batches of start→f pairs and of f→start pairs are one
+        axis of decode batches (shared by the ranks of a mesh)."""
         tm1 = self.t - 1
         flows = torch.zeros((tm1, self.h, self.w, 2), device=self.device)
         masks = torch.zeros((tm1, self.h, self.w), device=self.device)
         targets = np.arange(start + 1, self.t)
-        for s in range(0, len(targets), self.pair_batch):
-            tb = targets[s:s + self.pair_batch]
-            sb = np.full_like(tb, start)
-            fwd = self.decode(sb, tb)
-            bwd = self.decode(tb, sb)
-            flows[s:s + len(tb)] = fwd.permute(0, 2, 3, 1)
-            masks[s:s + len(tb)] = cycle_masks_batched(fwd, bwd, threshold).float()
+        k = len(targets)
+        if k:
+            sources = np.full_like(targets, start)
+            both = self._decode_batches(self._batches(sources, targets)
+                                        + self._batches(targets, sources))
+            fwd, bwd = both[:k], both[k:]
+            flows[:k] = fwd.permute(0, 2, 3, 1)
+            masks[:k] = cycle_masks_batched(fwd, bwd, threshold).float()
         return flows, masks
 
 

@@ -23,6 +23,15 @@ writer failure is re-raised by ``join_saves``. ``timings`` holds the host
 seconds of each stage (under the JAX package's stage names) and phase, each
 ending in a device sync; ``run()`` also records its stages in the process-wide
 stage timers of ``utils/profiling.py`` and logs their report.
+
+With ``mesh`` (JAX ``pipeline.py:53``) every rank runs ``run()``: the ViT
+frames, RAFT's encoder frames and decode pairs, the closest grids, the
+best-buddy pairs and the ambiguity rows shard over the ranks, every rank
+holds their gathered results, and chaining runs on every rank alike. Rank
+0 alone decides whether masks are needed (broadcast before anything is
+written), makes the masks and the split (host work the JAX package does
+not shard either) and writes every artifact; the other ranks write
+nothing, and no rank returns before the artifacts have landed.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..config import PreprocessConfig, add_config_paths
 from ..models import vit_convert
 from ..models.raft import RAFT, load_raft_state_dict
 from ..models.vit import VisionTransformer, extract_feature_video
+from ..parallel import mesh as mesh_lib
 from ..structures import save_bb_data
 from ..utils import video_io
 from ..utils.profiling import dump_stage_report, stage_timer
@@ -66,15 +76,20 @@ class PreprocessingPipeline:
     # T×3×H×W frames in [0, 1]; when None they are read from the video folder
     frames: Optional[torch.Tensor] = None
     raft: Optional[RAFT] = None  # on ``device``
+    mesh: Optional[mesh_lib.Mesh] = None  # this rank's place; ``device`` is its device
 
     @classmethod
     def from_checkpoints(cls, data_path: str, cfg: PreprocessConfig,
                          raft_checkpoint: Optional[str] = None,
                          dino_checkpoint: Optional[str] = None,
-                         device: torch.device = torch.device("cuda")):
-        """The pipeline with its weights loaded onto ``device`` from a
-        princeton-vl RAFT checkpoint and a DINOv2 state-dict checkpoint
-        (either may be None: the stages that need it then raise)."""
+                         device: torch.device = torch.device("cuda"),
+                         mesh: Optional[mesh_lib.Mesh] = None):
+        """The pipeline with its weights loaded onto ``device`` (with
+        ``mesh``, the rank's device) from a princeton-vl RAFT checkpoint and a
+        DINOv2 state-dict checkpoint (either may be None: the stages that
+        need it then raise)."""
+        if mesh is not None:
+            device = mesh.device
         model = vit = None
         if raft_checkpoint:
             model = load_raft_state_dict(raft_checkpoint, device)
@@ -82,7 +97,7 @@ class PreprocessingPipeline:
             state, vcfg = vit_convert.load_dinov2_state_dict(dino_checkpoint,
                                                              cfg.dino_model_name)
             vit = vit_convert.build_vit(state, vcfg, device)
-        return cls(data_path, cfg, vit=vit, device=device, raft=model)
+        return cls(data_path, cfg, vit=vit, device=device, raft=model, mesh=mesh)
 
     def __post_init__(self):
         self.paths = add_config_paths(self.data_path)
@@ -90,8 +105,10 @@ class PreprocessingPipeline:
         self._engine = None
         # host seconds of each stage and phase, each ending in a device sync
         self.timings: Dict[str, float] = {}
-        # the best-buddy stage's sweep and ambiguity telemetry
+        # the best-buddy stage's sweep and ambiguity telemetry, stage 1's
+        # decode batch sizes
         self.telemetry: Dict[str, dict] = {}
+        self.main = mesh_lib.is_main(self.mesh)  # the process that writes
 
     @property
     def video(self) -> torch.Tensor:
@@ -112,7 +129,8 @@ class PreprocessingPipeline:
                 raise ValueError("RAFT weights required")
             self._engine = RaftFlowEngine(
                 self.raft, self.video, num_iters=self.cfg.raft_iters,
-                compute_dtype=_DTYPES[self.cfg.raft_compute_dtype], device=self.device)
+                compute_dtype=_DTYPES[self.cfg.raft_compute_dtype], device=self.device,
+                mesh=self.mesh)
         return self._engine
 
     def _timed(self, name: str, fn):
@@ -142,8 +160,9 @@ class PreprocessingPipeline:
             min_trajectory_length=self.cfg.min_trajectory_length,
             direct_flow_fn=direct_fn,
             direct_flow_threshold=self.cfg.direct_flow_threshold))
-        video_io.save_npz(out_path, trajectories=trajs)
-        logger.info("saved %s: %s", out_path, trajs.shape)
+        if self.main:
+            video_io.save_npz(out_path, trajectories=trajs)
+            logger.info("saved %s: %s", out_path, trajs.shape)
         return trajs
 
     def extract_trajectories_both(self):
@@ -159,8 +178,9 @@ class PreprocessingPipeline:
             min_trajectory_length=self.cfg.min_trajectory_length,
             direct_flow_threshold=self.cfg.direct_flow_threshold,
             timings=self.timings)
-        video_io.save_npz(self.paths["trajectories_file"], trajectories=trajs)
-        logger.info("saved %s: %s", self.paths["trajectories_file"], trajs.shape)
+        if self.main:
+            video_io.save_npz(self.paths["trajectories_file"], trajectories=trajs)
+            logger.info("saved %s: %s", self.paths["trajectories_file"], trajs.shape)
         return trajs, unfiltered
 
     def extract_dino_features(self, layer: Union[int, Sequence[int]],
@@ -169,8 +189,9 @@ class PreprocessingPipeline:
                               stride: Optional[int] = None):
         """One ViT sweep for one layer, or for several in a single pass when
         ``layer`` and ``out_path`` are lists. Returns the f32 feature
-        video(s) on the device; each artifact is its store-dtype cast, made
-        on the device and written from a background thread."""
+        video(s) on the device (every rank's: the frames shard over the
+        ranks); each artifact is its store-dtype cast, made on the device and
+        written from a background thread on rank 0."""
         if self.vit is None:
             raise ValueError("DINO weights required")
         single = isinstance(layer, int)
@@ -181,9 +202,9 @@ class PreprocessingPipeline:
             stride=self.cfg.dino_stride if stride is None else stride,
             layer=layers, facet=self.cfg.dino_facet if facet is None else facet,
             frames_per_batch=self.cfg.extract_frames_per_batch,
-            compute_dtype=_DTYPES[self.cfg.compute_dtype])
+            compute_dtype=_DTYPES[self.cfg.compute_dtype], mesh=self.mesh)
         store = _DTYPES[self.cfg.feature_store_dtype]
-        for f, path in zip(feats, out_paths):
+        for f, path in zip(feats if self.main else (), out_paths):
             stored = f.to(store)  # on the device: halves the fetch, not only the file
             if self.cfg.async_artifact_save:
                 self._save_async(stored, path)
@@ -209,9 +230,11 @@ class PreprocessingPipeline:
         th.start()
         self._save_threads.append((th, slot))
 
-    def create_fg_masks(self, mask_features: torch.Tensor) -> np.ndarray:
+    def create_fg_masks(self, mask_features: torch.Tensor) -> Optional[np.ndarray]:
         """T×H×W {0, 1} masks from the mask-layer features, written as jpg
-        frames to the masks folder (0/255)."""
+        frames to the masks folder (0/255); rank 0's work (others: None)."""
+        if not self.main:
+            return None
         masks = fg_lib.compute_fg_masks(
             mask_features, (self.cfg.video_resh, self.cfg.video_resw),
             fg_mask_threshold=self.cfg.fg_mask_threshold).cpu().numpy()
@@ -220,7 +243,10 @@ class PreprocessingPipeline:
         return masks
 
     def split_trajectories(self, trajs: np.ndarray):
-        """Split N×T×2 trajectories by the masks on disk; writes both banks."""
+        """Split N×T×2 trajectories by the masks on disk; writes both banks.
+        Rank 0's work (others: None)."""
+        if not self.main:
+            return None
         masks = video_io.load_masks(self.paths["masks_path"],
                                     h_resize=self.cfg.video_resh,
                                     w_resize=self.cfg.video_resw)
@@ -234,31 +260,35 @@ class PreprocessingPipeline:
                              unfiltered_trajs: np.ndarray):
         """Stage 5 on the f32 feature video: the sweep with the optical-flow
         filter fused before the cap, ``bb_truncation.json`` beside the
-        artifact, the ambiguity pass, ``dino_best_buddies_filtered.npz``."""
+        artifact, the ambiguity pass, ``dino_best_buddies_filtered.npz``
+        (the files written by rank 0)."""
         h, w = self.cfg.video_resh, self.cfg.video_resw
         stride = self.cfg.dino_stride
         sweep: dict = {}
         bb = bb_lib.extract_best_buddies(
             features, h, w, stride, cap=self.cfg.bb_max_pairs_per_frame_pair,
-            unfiltered_trajectories=unfiltered_trajs, telemetry=sweep)
+            unfiltered_trajectories=unfiltered_trajs, telemetry=sweep, mesh=self.mesh)
         phases = sweep["phases"]
         self.timings["bb_closest_grids"] = phases["closest_grids_s"]
         self.timings["bb_sweep"] = phases["sweep_s"]
         self.timings["bb_compaction"] = phases["compaction_s"]
         # the reference keeps every mutual pair; the cap's truncation is
         # recorded beside the artifact so it is never silent
-        os.makedirs(self.paths["dino_bb_dir"], exist_ok=True)
-        with open(os.path.join(self.paths["dino_bb_dir"], "bb_truncation.json"), "w") as f:
-            json.dump(sweep, f, indent=1)
+        if self.main:
+            os.makedirs(self.paths["dino_bb_dir"], exist_ok=True)
+            with open(os.path.join(self.paths["dino_bb_dir"], "bb_truncation.json"),
+                      "w") as f:
+                json.dump(sweep, f, indent=1)
         ambiguity: dict = {}
         bb = self._timed("bb_ambiguity", lambda: bb_lib.compute_bb_ambiguity(
             bb, features, h, w, stride, box_size=float(self.cfg.dino_bb_box_size),
             iou_thresh=self.cfg.dino_bb_iou_threshold, topk=self.cfg.dino_bb_nms_topk,
-            telemetry=ambiguity))
+            telemetry=ambiguity, mesh=self.mesh))
         self.telemetry.update(best_buddies=sweep, bb_ambiguity=ambiguity)
-        out = os.path.join(self.paths["dino_bb_dir"], "dino_best_buddies_filtered.npz")
-        self._timed("bb_save", lambda: save_bb_data(out, bb))
-        logger.info("saved %s", out)
+        if self.main:
+            out = os.path.join(self.paths["dino_bb_dir"], "dino_best_buddies_filtered.npz")
+            self._timed("bb_save", lambda: save_bb_data(out, bb))
+            logger.info("saved %s", out)
         return bb
 
     def run(self):
@@ -270,12 +300,18 @@ class PreprocessingPipeline:
             with stage_timer(f"preprocess/{name}"):
                 return self._timed(f"preprocess/{name}", fn)
 
+        # decided once, before anything is written: rank 0 writes the masks,
+        # and a rank that looked after that would sweep other ViT layers
+        # than the others and the collectives would stop matching (a hang)
+        need_masks = mesh_lib.broadcast_object(not os.path.exists(paths["masks_path"]),
+                                               self.mesh)
         if cfg.filter_using_direct_flow:
             trajs, unfiltered = stage("trajectories", self.extract_trajectories_both)
         else:  # without the direct filter both passes are one computation
             trajs = unfiltered = stage("trajectories", lambda: self.extract_trajectories(
                 False, paths["trajectories_file"]))
-        need_masks = not os.path.exists(paths["masks_path"])
+        self.telemetry["raft"] = {"decode_batch_sizes": dict(
+            self.flow_engine.decode_batch_sizes)}
         if need_masks and cfg.mask_dino_model_name != cfg.dino_model_name:
             logger.warning(
                 "mask_dino_model_name %s != dino_model_name %s — the loaded DINO "
@@ -296,12 +332,17 @@ class PreprocessingPipeline:
                     facet=cfg.mask_dino_facet, stride=cfg.mask_dino_stride)))
             else:
                 logger.info("masks exist, skipping fg-mask stage")
-        stage("split_fg_bg", lambda: self.split_trajectories(trajs))
-        stage("unfiltered_trajectories", lambda: video_io.save_npz(
-            paths["unfiltered_trajectories_file"], trajectories=unfiltered))
-        logger.info("saved %s: %s", paths["unfiltered_trajectories_file"], unfiltered.shape)
+        # the other ranks wait here for rank 0's masks and split
+        stage("split_fg_bg", lambda: (self.split_trajectories(trajs),
+                                      mesh_lib.barrier(self.mesh)))
+        if self.main:
+            stage("unfiltered_trajectories", lambda: video_io.save_npz(
+                paths["unfiltered_trajectories_file"], trajectories=unfiltered))
+            logger.info("saved %s: %s", paths["unfiltered_trajectories_file"],
+                        unfiltered.shape)
         stage("best_buddies", lambda: self.compute_best_buddies(feats, unfiltered))
         self.join_saves()
+        mesh_lib.barrier(self.mesh)  # no rank returns before the artifacts landed
         logger.info("stage timing report:\n%s", dump_stage_report())
 
     def join_saves(self):

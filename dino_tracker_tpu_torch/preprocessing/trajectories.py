@@ -18,7 +18,11 @@ JAX package's, so the two packages' outputs compare element by element.
 
 Direct flows come only through ``direct_flow_fn(start) -> (flows, masks)``
 (``RaftFlowEngine.direct_flows``, or arrays in tests), rows relative to the
-start frame, padded to t-1 rows or not. Not ported (they fuse XLA
+start frame, padded to t-1 rows or not. With a multi-rank engine every call
+of ``direct_flow_fn`` is a collective (the ranks share its decodes), so the
+chaining and the harvest run on every rank alike, over the same starts in
+the same order, and each rank holds the trajectories stage 5 needs (JAX
+``:395``, ``:500-505``). Not ported (they fuse XLA
 dispatches or bound recompiles): ``_make_fused_start_program``,
 ``_make_fused_group_program``, ``_dual_start_program``, the ``decode=`` /
 ``start_group`` path and the power-of-two gather buckets.

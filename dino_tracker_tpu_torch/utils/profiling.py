@@ -23,6 +23,7 @@ logger = logging.getLogger(__name__)
 
 _STAGE_TIMES: Dict[str, float] = defaultdict(float)
 _STAGE_COUNTS: Dict[str, int] = defaultdict(int)
+_STAGE_BYTES: Dict[str, int] = defaultdict(int)
 
 
 def device_fence(device: Optional[torch.device] = None):
@@ -33,9 +34,10 @@ def device_fence(device: Optional[torch.device] = None):
 
 
 @contextlib.contextmanager
-def stage_timer(name: str, fence: Optional[torch.device] = None):
+def stage_timer(name: str, fence: Optional[torch.device] = None, nbytes: int = 0):
     """Accumulating wall-clock timer for pipeline stages; with ``fence`` the
-    time runs until that device has finished the stage's work."""
+    time runs until that device has finished the stage's work. ``nbytes``
+    (a transfer's size) accumulates beside the time."""
     t0 = time.perf_counter()
     try:
         yield
@@ -44,18 +46,23 @@ def stage_timer(name: str, fence: Optional[torch.device] = None):
         dt = time.perf_counter() - t0
         _STAGE_TIMES[name] += dt
         _STAGE_COUNTS[name] += 1
+        if nbytes:
+            _STAGE_BYTES[name] += nbytes
         logger.info("[timing] %s: %.2fs (total %.1fs over %d calls)",
                     name, dt, _STAGE_TIMES[name], _STAGE_COUNTS[name])
 
 
 def stage_report() -> Dict[str, dict]:
-    return {k: {"total_s": round(v, 3), "calls": _STAGE_COUNTS[k]}
+    """Each stage's total seconds and calls (and bytes, for transfers)."""
+    return {k: {"total_s": round(v, 3), "calls": _STAGE_COUNTS[k],
+                **({"bytes": _STAGE_BYTES[k]} if k in _STAGE_BYTES else {})}
             for k, v in sorted(_STAGE_TIMES.items(), key=lambda kv: -kv[1])}
 
 
 def reset_stage_timers():
     _STAGE_TIMES.clear()
     _STAGE_COUNTS.clear()
+    _STAGE_BYTES.clear()
 
 
 def add_slowest_rank(mesh, prefix: str):

@@ -187,3 +187,23 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:4] == ["(2, 3, 14, 20) (2, 3, 7, 10) (14, 20, 2)",
                                           "(42, 3, 2)", "32 35", str(len(PORT_MODULES))]
+
+
+def test_mesh_test_modules_import_with_the_jax_package_blocked():
+    """A spawned rank imports the test module that holds its function: every
+    multi-rank test module imports with ``dino_tracker_tpu`` and jax
+    unimportable, so no rank can load JAX (their JAX lives in fixtures)."""
+    mods = sorted(n[:-3] for n in os.listdir(os.path.join(REPO, "tests"))
+                  if n.startswith("test_torch_mesh") and n.endswith(".py"))
+    assert "test_torch_mesh_preprocess" in mods and len(mods) >= 5
+    code = (
+        "import importlib, sys\n"
+        "for m in ('dino_tracker_tpu', 'jax', 'flax'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        f"print(len([importlib.import_module(m) for m in {mods!r}]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(len(mods))]

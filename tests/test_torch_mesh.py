@@ -194,3 +194,22 @@ def test_pad_to_multiple_matches_jax():
         got = mesh_lib.pad_to_multiple(x, multiple, axis)
         np.testing.assert_array_equal(got, jpad(x, multiple, axis))
         assert got.shape[axis] % multiple == 0
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4])
+def test_split_batches_shares_whole_batches(w):
+    """Every rank's batches are a contiguous range in rank order, together
+    every batch once; the longer shares start at ``first``; rows are each
+    rank's sum of its batches' rows."""
+    batch_rows = [8, 8, 8, 8, 3]
+    for first in range(w):
+        ranges, rows = [], None
+        for rank in range(w):
+            mesh = mesh_lib.Mesh(rank, w, torch.device("cpu")) if w > 1 else None
+            mine, rows = mesh_lib.split_batches(batch_rows, mesh, first=first)
+            ranges.append(mine)
+        assert [i for r in ranges for i in r] == list(range(len(batch_rows)))
+        assert rows == [sum(batch_rows[i] for i in r) for r in ranges]
+        counts = [len(r) for r in ranges]
+        longer = [(first + k) % w for k in range(len(batch_rows) % w)]
+        assert counts == [len(batch_rows) // w + (r in longer) for r in range(w)]

@@ -32,7 +32,7 @@ from dino_tracker_tpu.preprocessing import trajectories as jtraj
 from dino_tracker_tpu.utils import video_io as jvideo_io
 from dino_tracker_tpu_torch.cli import preprocess as preprocess_cli
 from dino_tracker_tpu_torch.cli import train as train_cli
-from dino_tracker_tpu_torch.config import PreprocessConfig
+from dino_tracker_tpu_torch.config import PreprocessConfig, add_config_paths
 from dino_tracker_tpu_torch.models import raft as praft
 from dino_tracker_tpu_torch.models import vit as pvit
 from dino_tracker_tpu_torch.preprocessing import fg_mask
@@ -215,23 +215,25 @@ def write_train_config(path, iterations=2, gates_after=1, checkpoint_interval=2)
 def test_preprocess_cli_then_train_cli(tmp_path, weights):
     """``cli.preprocess --device cpu`` on checkpoints written here (a
     princeton-vl RAFT ``.pth`` and a DINOv2 ViT-S/14 ``.pth``) writes every
-    artifact; ``cli.train`` trains on the directory; ``--devices 2`` is
-    refused."""
+    artifact and returns its one rank's report; ``cli.train`` trains on the
+    directory; ``--devices 2`` on a device index is refused."""
     root = video_dir(tmp_path)
     raft_path, vit_path, config = write_checkpoints_and_config(tmp_path, weights[0])
     args = ["--config", config, "--data-path", root, "--raft-checkpoint", raft_path,
             "--dino-checkpoint", vit_path, "--device", "cpu"]
-    with pytest.raises(SystemExit):
-        preprocess_cli.main(args + ["--devices", "2"])
-    pipe = preprocess_cli.main(args)
-    assert [k for k in pipe.timings if k.startswith("preprocess/")] == STAGES
+    with pytest.raises(ValueError, match="puts rank r on cuda:r"):
+        preprocess_cli.main(args + ["--devices", "2", "--device", "cuda:1"])
+    (report,) = preprocess_cli.main(args)
+    assert [k for k in report["timings"] if k.startswith("preprocess/")] == STAGES
+    assert set(report["stages"]) >= set(STAGES)
+    paths = add_config_paths(root)
     for key in ARTIFACTS:
-        assert os.path.exists(pipe.paths[key]), key
-    assert video_io.load_npz(pipe.paths["dino_embed_video_path"])["features"].shape == (
+        assert os.path.exists(paths[key]), key
+    assert video_io.load_npz(paths["dino_embed_video_path"])["features"].shape == (
         T, 384, 5, 7)
-    assert len(os.listdir(pipe.paths["masks_path"])) == T
+    assert len(os.listdir(paths["masks_path"])) == T
     for name in ("bb_truncation.json", "dino_best_buddies_filtered.npz"):
-        assert os.path.exists(bb_path(pipe.paths, name))
+        assert os.path.exists(bb_path(paths, name))
 
     train_yaml = write_train_config(tmp_path / "train.yaml")
     train_cli.main(["--config", train_yaml, "--data-path", root, "--device", "cpu"])
