@@ -124,6 +124,10 @@ Phases, one line or more each (any failure raises and exits non-zero):
      width, 40 iterations, gates at 20), both inference runs serving the
      2-rank checkpoint; checked: the checkpoints, every rank's exact K1
      launches, trajectories within 1e-3 px and equal occlusion flags. Then
+     both again on a copy of that folder with a truncated state_41.pt beside
+     state_40.pt (a kill mid-save): checked that every rank served
+     state_40.pt and that the .npy files equal those of the folder without
+     the bad file, bit for bit. Then
      the train step on 2 ranks against one device (run twice, for the card's
      own spread): f32 from the Trainer's init (losses 1e-5 relative plus
      1e-7, gradients 1e-4 of each tensor's max, BN statistics 1e-6), bf16
@@ -2059,8 +2063,9 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
                iterations=E2E_ITERATIONS, t=E2E_T):
     """cli.train then cli.inference_benchmark with --devices n_ranks and
     --devices 1 on copies of a preprocessed video directory (TrainConfig's
-    full width, ``iterations`` with both gates at half of them), then the
-    step's equality across ranks (``mesh_equality``). ``share``: every rank
+    full width, ``iterations`` with both gates at half of them), inference
+    again past a truncated newest checkpoint, then the step's equality across
+    ranks (``mesh_equality``). ``share``: every rank
     on cuda:0 over gloo; else rank r on cuda:r over NCCL. Returns the
     launches of K1-fwd and K1-bwd over every rank of every run."""
     from dino_tracker_tpu_torch.cli import inference_benchmark
@@ -2111,6 +2116,38 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
                        for f in frames},)
         for sub in ("trajectories", "occlusions"):
             shutil.rmtree(os.path.join(dirs[n_ranks], sub))
+    # a checkpoint cut by a kill mid-save, newer than any: both runs serve the
+    # step before it (rank 0 picks it for every rank) and write what the
+    # folder without it gave
+    cut = os.path.join(root, "cut")
+    shutil.copytree(dirs[n_ranks], cut, ignore=shutil.ignore_patterns(
+        "trajectories", "occlusions", "grid_*"))
+    folder = os.path.join(cut, "models", "dino_tracker")
+    good = checkpoint.checkpoint_file(folder, iterations)
+    with open(good, "rb") as f:
+        blob = f.read()
+    with open(checkpoint.checkpoint_file(folder, iterations + 1), "wb") as f:
+        f.write(blob[: len(blob) // 2])
+    fallback = {}
+    for w in (n_ranks, 1):
+        fallback[w] = run(inference_benchmark, ["--config", train_yaml, "--data-path", cut,
+                                                "--device", dev.type, "--benchmark-pickle-path",
+                                                bench_pkl, "--video-id", "0"], w)
+        got = [r["checkpoint"] for r in fallback[w][0]]
+        check(got == [good] * w, f"--devices {w} with a truncated state_{iterations + 1}.pt "
+              f"served {got}, expected {good} on every rank")
+        same = all(np.array_equal(np.load(os.path.join(cut, sub, f"{name}_{f}.npy")),
+                                  served[w][2][f][i])
+                   for f in frames for i, (sub, name) in enumerate(
+                       (("trajectories", "trajectories"), ("occlusions", "occlusion_preds"))))
+        check(same, f"--devices {w} with a truncated newest checkpoint wrote other "
+              "predictions than the folder without it")
+        for sub in ("trajectories", "occlusions"):
+            shutil.rmtree(os.path.join(cut, sub))
+    print(f"mesh: a truncated state_{iterations + 1}.pt beside state_{iterations}.pt: "
+          f"cli.inference_benchmark --devices {n_ranks} ({fallback[n_ranks][1]:.2f} s) and "
+          f"--devices 1 ({fallback[1][1]:.2f} s) served state_{iterations}.pt on every "
+          f"rank, .npy files equal to those without the bad file [{smi}]", flush=True)
     px = max(float(np.abs(served[n_ranks][2][f][0] - served[1][2][f][0]).max())
              for f in frames)
     flips = sum(int((served[n_ranks][2][f][1] != served[1][2][f][1]).sum()) for f in frames)
@@ -2124,12 +2161,14 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
                for r in trained[w][0]]
         check(got == [(3 * iterations, 3 * iterations)] * w,
               f"--devices {w} training launched K1-fwd / K1-bwd {got} times per rank")
-        got = [r["launches"]["blurpool_down_nhwc"] for r in served[w][0]]
-        check(got == refine(w), f"--devices {w} inference launched K1-fwd {got} "
-              f"times per rank, expected {refine(w)}")
+        for what, runs in (("inference", served), ("inference past the truncated file",
+                                                   fallback)):
+            got = [r["launches"]["blurpool_down_nhwc"] for r in runs[w][0]]
+            check(got == refine(w), f"--devices {w} {what} launched K1-fwd {got} "
+                  f"times per rank, expected {refine(w)}")
     launches = [0, 0]
     for w in (n_ranks, 1):
-        for r in trained[w][0] + served[w][0]:
+        for r in trained[w][0] + served[w][0] + fallback[w][0]:
             launches[0] += r["launches"]["blurpool_down_nhwc"]
             launches[1] += r["launches"]["blurpool_up_nhwc"]
     for w in (n_ranks, 1):

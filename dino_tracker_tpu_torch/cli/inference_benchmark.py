@@ -1,9 +1,10 @@
 """TAP-Vid benchmark inference CLI of the port (reference
-inference_benchmark.py); serves the newest checkpoint: the port trainer's
-state_<step>.pt, else the JAX trainer's state_<step>.msgpack.
+inference_benchmark.py); serves the newest readable checkpoint: the port
+trainer's state_<step>.pt, else the JAX trainer's state_<step>.msgpack.
 ``--devices N`` shards the refine and the prediction rows over N ranks
 (``cli/_ranks.py``); rank 0 writes the files. ``main`` returns each rank's
-``utils.profiling.rank_report``."""
+``utils.profiling.rank_report`` with the checkpoint file it served
+(``checkpoint``)."""
 
 import argparse
 
@@ -19,7 +20,7 @@ def _infer(mesh, args):
                             device, mesh=mesh)
     rt.infer_benchmark(args.benchmark_pickle_path, args.video_id,
                        step=args.iter, chunk=args.batch_size)
-    return profiling.rank_report(device)
+    return {**profiling.rank_report(device), "checkpoint": rt.checkpoint}
 
 
 def main(argv=None):

@@ -1,8 +1,9 @@
 """Grid-query inference CLI of the port (reference inference_grid.py);
-serves the newest checkpoint: the port trainer's state_<step>.pt, else the
-JAX trainer's state_<step>.msgpack. ``--devices N`` shards the refine and
+serves the newest readable checkpoint: the port trainer's state_<step>.pt,
+else the JAX trainer's state_<step>.msgpack. ``--devices N`` shards the refine and
 the prediction rows over N ranks (``cli/_ranks.py``); rank 0 writes the
-files. ``main`` returns each rank's ``utils.profiling.rank_report``."""
+files. ``main`` returns each rank's ``utils.profiling.rank_report`` with
+the checkpoint file it served (``checkpoint``)."""
 
 import argparse
 
@@ -19,7 +20,7 @@ def _infer(mesh, args):
     rt.infer_grid(interval=args.interval, start_frame=args.start_frame,
                   use_segm_mask=args.use_segm_mask, step=args.iter,
                   chunk=args.batch_size)
-    return profiling.rank_report(device)
+    return {**profiling.rank_report(device), "checkpoint": rt.checkpoint}
 
 
 def main(argv=None):

@@ -122,15 +122,24 @@ def load_jax_checkpoint(path: str) -> dict:
     return _unchunk(tree)
 
 
+_MSGPACK_NAME = re.compile(r"state_(\d+)\.msgpack$")
+
+
+def checkpoint_steps(ckpt_folder: str) -> list:
+    """Steps of the JAX trainer's ``state_<step>.msgpack`` files in the
+    folder, newest first (the JAX package's naming, training/checkpoint.py)."""
+    if not os.path.isdir(ckpt_folder):
+        return []
+    return sorted((int(m.group(1)) for name in os.listdir(ckpt_folder)
+                   if (m := _MSGPACK_NAME.match(name))), reverse=True)
+
+
 def checkpoint_path(ckpt_folder: str, step: Optional[int] = None) -> str:
     """``state_<step>.msgpack`` in ``ckpt_folder``; the newest when step is
-    None (the JAX package's naming, training/checkpoint.py)."""
+    None."""
     if step is None:
-        steps = [int(m.group(1)) for name in (os.listdir(ckpt_folder)
-                                              if os.path.isdir(ckpt_folder)
-                                              else [])
-                 if (m := re.match(r"state_(\d+)\.msgpack$", name))]
+        steps = checkpoint_steps(ckpt_folder)
         if not steps:
             raise FileNotFoundError(f"no checkpoint in {ckpt_folder}")
-        step = max(steps)
+        step = steps[0]
     return os.path.join(ckpt_folder, f"state_{step}.msgpack")

@@ -182,7 +182,14 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
                 tgt_traj = closest[u_idx].gather(1, src_max)
                 return invalid[src_traj, u_idx[:, None]] & invalid[tgt_traj, s_idx[:, None]]
         outs.append(_mutual_nn_core(fn[s_idx], fn[u_idx], core_cap, keep_fn))
-    outs = mesh_lib.gather_batches(outs, rows, mesh, "bb_sweep", 3 if raw else 5)
+    if pairs.shape[1]:
+        outs = mesh_lib.gather_batches(outs, rows, mesh, "bb_sweep", 3 if raw else 5)
+    else:  # one frame has no pair: an empty BBData, as the JAX stage returns
+        empty = lambda width, dtype=torch.int64: torch.zeros((0, width), dtype=dtype,
+                                                             device=dev)
+        outs = ((empty(n), empty(n, torch.float32), empty(n, torch.bool)) if raw else
+                (empty(cap), empty(cap), empty(cap, torch.float32), empty(cap, torch.bool),
+                 torch.zeros(0, dtype=torch.int64, device=dev)))
     phases("sweep_s")
 
     if raw:

@@ -9,11 +9,14 @@ trajectory and occlusion queries. The path contract and ``TrainConfig``
 points (``evaluation/tapvid.py``) are the port's own copies; Pillow is
 imported only where frames are read.
 
-Checkpoints: the port's trainer writes ``state_<step>.pt``; inference loads
-the newest of those, and otherwise a ``state_<step>.msgpack`` written by the
-JAX trainer. ``make_model_inference`` and ``load_model`` are the in-memory
-entry points under ``DINOTrackerRuntime``: they take tensors, a model or a
-checkpoint folder, and need no config file.
+Checkpoints: the port's trainer writes ``state_<step>.pt``; inference serves
+the newest readable one of those, and otherwise the newest readable
+``state_<step>.msgpack`` written by the JAX trainer, skipping a file cut by a
+kill mid-save as the JAX runtime does. ``make_model_inference`` and
+``load_model`` are the in-memory entry points under ``DINOTrackerRuntime``:
+they take tensors, a model or a checkpoint folder, and need no config file.
+A runtime keeps the training data it loaded, and inference after ``train``
+serves from it (JAX runtime.py:58-63, 135-136).
 
 With a ``mesh`` (the JAX runtime's ``mesh_devices``, runtime.py:38-49) every
 rank loads the video's artifacts onto its own device and runs the same
@@ -48,23 +51,63 @@ from .utils.profiling import stage_timer
 logger = logging.getLogger(__name__)
 
 
+def read_checkpoint_file(path: str) -> dict:
+    """What one checkpoint file holds: the port's state (``.pt``) or the JAX
+    trainer's train state (``.msgpack``), on the host."""
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return convert.load_jax_checkpoint(path)
+
+
+def read_checkpoint(ckpt_folder: str, step: Optional[int] = None) -> tuple:
+    """(path, contents) of the checkpoint inference serves.
+
+    ``step`` None: the first readable file of the port's ``state_<step>.pt``
+    newest first, then the JAX trainer's ``state_<step>.msgpack`` newest
+    first; an unreadable one (e.g. truncated by a kill mid-save) is logged
+    and skipped, as the JAX ``load_state(step=None)`` skips it
+    (training/checkpoint.py:115-143). A folder with no checkpoint raises
+    ``FileNotFoundError``, one whose every file is unreadable the last read
+    error. An explicit ``step`` reads its ``.pt``, else its ``.msgpack``, and
+    fails hard."""
+    if step is not None:
+        path = ckpt_lib.checkpoint_file(ckpt_folder, step)
+        if not os.path.exists(path):
+            path = convert.checkpoint_path(ckpt_folder, step)
+        return path, read_checkpoint_file(path)
+    paths = ([ckpt_lib.checkpoint_file(ckpt_folder, s)
+              for s in ckpt_lib.checkpoint_steps(ckpt_folder)]
+             + [convert.checkpoint_path(ckpt_folder, s)
+                for s in convert.checkpoint_steps(ckpt_folder)])
+    if not paths:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_folder}")
+    for path in paths:
+        try:
+            return path, read_checkpoint_file(path)
+        except Exception as e:  # truncated or corrupt file
+            last = e
+            logger.warning("checkpoint %s unreadable (%s); falling back", path, e)
+    raise last
+
+
+def model_from_checkpoint(path: str, contents: dict, tcfg: TrackerConfig,
+                          device: torch.device) -> tracker_lib.Tracker:
+    """The trained model of a file ``read_checkpoint`` read, on ``device``. A
+    state that does not fit ``tcfg`` raises: that is a wrong config, not a
+    damaged file."""
+    model = tracker_lib.Tracker(tcfg)
+    model.load_state_dict(contents["model"] if path.endswith(".pt") else
+                          convert.state_from_jax(contents["params"],
+                                                 contents["batch_stats"]))
+    logger.info("serving checkpoint %s", path)
+    return model.to(device)
+
+
 def load_model(ckpt_folder: str, tcfg: TrackerConfig, device: torch.device,
                step: Optional[int] = None) -> tracker_lib.Tracker:
-    """The trained model of a checkpoint, on ``device``: the port's newest
-    ``state_<step>.pt`` (or that of ``step``), else the JAX trainer's
-    ``state_<step>.msgpack``."""
-    model = tracker_lib.Tracker(tcfg)
-    port_steps = ckpt_lib.checkpoint_steps(ckpt_folder)
-    if port_steps and (step is None or step in port_steps):
-        state = ckpt_lib.load_state(ckpt_folder, port_steps[0] if step is None
-                                    else step, map_location="cpu")
-        model.load_state_dict(state["model"])
-    else:
-        state = convert.load_jax_checkpoint(
-            convert.checkpoint_path(ckpt_folder, step))
-        model.load_state_dict(convert.state_from_jax(state["params"],
-                                                     state["batch_stats"]))
-    return model.to(device)
+    """The trained model of a checkpoint (``read_checkpoint``), on ``device``."""
+    return model_from_checkpoint(*read_checkpoint(ckpt_folder, step), tcfg,
+                                 device)
 
 
 def make_model_inference(model: tracker_lib.Tracker, video_tchw: torch.Tensor,
@@ -106,11 +149,17 @@ class DINOTrackerRuntime:
             self.device = self.mesh.device
         self.paths = add_config_paths(self.data_path)
         self.tcfg = tracker_config_from_train(self.cfg)
+        self._data = None
+        self.checkpoint = None  # the file load_state served last
 
     def load_video_data(self) -> train_lib.VideoData:
         """Every training artifact of the video, on this runtime's device
-        (JAX runtime.py:61-106). The feature stack stays f16 (the artifact
-        dtype); the step upcasts the gathered frames, which is exact."""
+        (JAX runtime.py:58-106). The feature stack stays f16 (the artifact
+        dtype); the step upcasts the gathered frames, which is exact. The
+        runtime keeps the data until it is dropped: a second call, and
+        inference after ``train``, use it again."""
+        if self._data is not None:
+            return self._data
         dev = self.device
         dino = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
         want = self.tcfg.delta_channels[-1]
@@ -143,11 +192,12 @@ class DINOTrackerRuntime:
             fg_bank, bg_bank = self.bank_rotator.current()
         else:
             fg_bank, bg_bank = build_bank(fg, device=dev), build_bank(bg, device=dev)
-        return train_lib.VideoData(
+        self._data = train_lib.VideoData(
             video=torch.from_numpy(video).to(dev),
             dino_embed=torch.from_numpy(dino).to(dev),
             fg_masks=torch.from_numpy(fg_masks).to(dev), bb=bb,
             fg_bank=fg_bank, bg_bank=bg_bank)
+        return self._data
 
     def train(self) -> tracker_lib.Tracker:
         """Train (or resume) this video's model; checkpoints go to
@@ -162,21 +212,52 @@ class DINOTrackerRuntime:
             mesh=self.mesh).train()
 
     def load_state(self, step: Optional[int] = None) -> tracker_lib.Tracker:
-        """The trained model (see ``load_model``) on this runtime's device."""
-        return load_model(self.paths["ckpt_folder"], self.tcfg, self.device,
-                          step)
+        """The trained model (see ``read_checkpoint``) on this runtime's
+        device. On a mesh with ``step`` None, rank 0 picks the file and every
+        rank loads that one, with no fallback of its own: ranks that chose
+        apart (a checkpoint written while they list the folder) would serve
+        different weights, which the refine's ``all_gather_rows`` would mix."""
+        folder = self.paths["ckpt_folder"]
+        if step is not None or not mesh_lib.is_parallel(self.mesh):
+            path, contents = read_checkpoint(folder, step)
+        else:
+            name, err = None, None
+            if mesh_lib.is_main(self.mesh):
+                try:
+                    path, contents = read_checkpoint(folder)
+                    name = os.path.basename(path)
+                except Exception as e:  # every rank raises, none waits
+                    err = e
+            name = mesh_lib.broadcast_object(name, self.mesh)
+            if err is not None:
+                raise err
+            if name is None:
+                raise RuntimeError(f"rank 0 found no readable checkpoint in {folder}")
+            if not mesh_lib.is_main(self.mesh):
+                path = os.path.join(folder, name)
+                contents = read_checkpoint_file(path)
+        self.checkpoint = path
+        return model_from_checkpoint(path, contents, self.tcfg, self.device)
 
     def get_model_inference(self, step: Optional[int] = None,
                             chunk: int = 4096) -> ModelInference:
-        dino = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
-        video = video_io.load_video(
-            self.paths["video_folder"],
-            resize=(self.cfg.video_resh, self.cfg.video_resw),
-            num_frames=dino.shape[0])
+        """The refined cache and its queries (JAX runtime.py:125-152), from
+        the frames and features ``load_video_data`` holds, else read from
+        disk. The reuse depends on training never writing ``video`` or
+        ``dino_embed``: the step only gathers frames out of them
+        (``tracker.get_refined_embeddings``), so they still equal the
+        artifacts and the predictions a fresh read's, bit for bit."""
+        if self._data is not None:
+            video, dino = self._data.video, self._data.dino_embed
+        else:
+            dino_np = video_io.load_npz(self.paths["dino_embed_video_path"])["features"]
+            video = torch.from_numpy(video_io.load_video(
+                self.paths["video_folder"],
+                resize=(self.cfg.video_resh, self.cfg.video_resw),
+                num_frames=dino_np.shape[0])).to(self.device)
+            dino = torch.from_numpy(dino_np).to(self.device)
         return make_model_inference(
-            self.load_state(step),
-            torch.from_numpy(video).to(self.device),
-            torch.from_numpy(dino).to(self.device), self.tcfg,
+            self.load_state(step), video, dino, self.tcfg,
             self.cfg.anchor_cosine_similarity_threshold,
             self.cfg.cosine_similarity_threshold, chunk, self.mesh)
 
