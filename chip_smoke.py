@@ -5,6 +5,7 @@
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
+    python3 chip_smoke.py --train-only   # phases 1, 2 (K1) and 5 only
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -43,12 +44,35 @@ Phases, one line or more each (any failure raises and exits non-zero):
      synthetic fg masks, 100k fg + 100k bg trajectories and padded best
      buddies, all made on the card from a seed; TrainConfig's defaults
      (batch 512 × 4 frames, bf16, cycle 4×256, contrastive 4×256); the port's
-     own initialization. train.train_step runs warm-up steps, then 20 timed
-     steps with both phase gates off and 10 with both on (all six losses);
-     every step launches K1-fwd and K1-bwd 3 times each. Then train.Trainer
-     trains 4 iterations across a phase boundary, writing state_<step>.pt,
-     and runtime.load_model + make_model_inference serve one 256-point
-     request from that checkpoint.
+     own initialization. The main path: train.train_step runs warm-up steps,
+     then 20 timed steps with both phase gates off and 10 with both on (all
+     six losses), and one step of each under set_sync_debug_mode("warn"),
+     which must make no host sync; then train.Trainer trains 50 iterations
+     from its init in chunks of up to 25 (TrainConfig.steps_per_call), each
+     chunk replays of the step captured into a CUDA graph
+     (training/step_graph.py), with the gates at 20 and a checkpoint at 30,
+     so that replays cross a gate, a checkpoint and the schedule's count 40.
+     K1-fwd and K1-bwd: the wrappers count 3 launches an eager step
+     (a capture's warm-up step included), and torch.profiler traces every
+     replay, 5 a trace, and counts the kernels the card ran, 3 each a
+     replay.
+     Then, for each set of gates, from one state (30 eager steps from the
+     init, restored as a checkpoint is), a chunk of 25 replays against 25
+     eager train_steps three times: equal batches and learning rates every
+     step (the rate steps down at count 40), each loss term's and each
+     parameter's and BN statistic's change at a median L2 distance from the
+     eager runs within 4x their own largest distance (index_add's atomics)
+     plus 0.1% of the change (0.01% of a loss term; the head's null-gradient
+     bias within Adam's 2·lr a step), no host sync in a replayed chunk under
+     set_sync_debug_mode("error"), graphed vs eager ms/iter timed in turns
+     with their peak memory and 5 steps each under torch.profiler (the
+     card's busy share); then a step with an .item() injected must fail capture and
+     raise. Then the Trainer's state_30.pt, written after replays, resumed
+     to 50 three times eagerly and once in chunks of replays: the final
+     generator state, schedule count and Adam steps equal the uninterrupted
+     run's, its parameters and BN statistics within the eager spread. Then
+     runtime.load_model + make_model_inference serve one 256-point request
+     from state_50.pt.
   6. the ViT feature stage at full width: seeded random dinov2_vitl14 weights
      (D=1024, 24 blocks, 16 heads) in the DINOv2 layout, made on the card,
      and a synthetic T=50 video at 854×476. PreprocessingPipeline.
@@ -158,9 +182,12 @@ Phases, one line or more each (any failure raises and exits non-zero):
 Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13) runs with every kernel's
 launch count set to 0 just before it and read just after (the ranks of
 phases 12 and 13 start from 0 in their own processes and report their
-counts). Then one JSON line with the kernels (K2 and K3 counted over phases
-6 + 9 + 11 + 13 and 8 + 9 + 11 + 13, K1 over 4 + 5 + 11 + 12), and last
-{"ok": true, "device": ...}.
+counts). A wrapper counts the launches it makes; the replays of a captured
+train step run no wrapper, and phase 5 counts the K1 kernels they run from
+a trace of the card (phases 11 and 12 leave their replays untraced, so their
+timers are not the profiler's). Then one JSON line with the kernels (K2 and
+K3 counted over phases 6 + 9 + 11 + 13 and 8 + 9 + 11 + 13, K1 over
+4 + 5 + 11 + 12), and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -170,6 +197,7 @@ pipeline's mask jpgs; PyYAML only through the CLIs' configs.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -199,6 +227,29 @@ ANCHOR_COS, COS = 0.7, 0.6
 N_FG_TRAJ = N_BG_TRAJ = 100_000
 BB_CAP = 512
 WARMUP_STEPS, OFF_STEPS, ON_STEPS = 3, 20, 10
+# phase 5's chunks: TrainConfig.steps_per_call steps; each loss term,
+# parameter and BN statistic of the graph may lie from three eager runs (the
+# median of its L2 distances) by this factor times their own largest distance
+# between two of them, plus a floor
+CHUNK_STEPS, CHUNK_TOL_FACTOR = 25, 4.0
+# the floors, shares of a loss term's values and of a tensor's change: bf16
+# rounding that differs between runs grows over the steps, and three eager
+# runs can happen to agree on a loss term or a tensor far closer than a
+# fourth run does (to 1e-7 of a loss term; the head's normalised convs, whose
+# kernels' scale is a null direction); a step too many or too few moves every
+# change by ~4%
+CHUNK_LOSS_FLOOR, CHUNK_CHANGE_FLOOR = 1e-4, 1e-3
+# the compared chunks start at this schedule count, so they cross
+# apply_scheduler_every = 40
+CHUNK_START = 30
+# phase 5's Trainer run: iterations, gates, a checkpoint and logs, so that its
+# chunks of replays cross a gate, a checkpoint and the schedule's count 40
+TRAINER_ITERATIONS, TRAINER_GATES, TRAINER_CHECKPOINT, TRAINER_LOG = 50, 20, 30, 25
+# K1-fwd and K1-bwd as a trace of the card names them (csrc/blurpool.cu);
+# train steps a torch.profiler trace holds (a 25-step trace of the step with
+# the gates on lost kernels: the counts are checked)
+K1_KERNELS = ("blurpool_down_kernel", "blurpool_up_kernel")
+TRACE_STEPS = 5
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
 # K2 on the ViT feature stage's main path: 4 frames a batch × 16 heads,
@@ -606,9 +657,443 @@ def make_train_data(video, dino, dev, seed, bb_cap=BB_CAP,
     return VideoData(video, dino, masks, bb, bank(n_traj[0]), bank(n_traj[1]))
 
 
-def phase_train(bp, dev, video, dino):
-    """The training slice at full width; returns the K1 launch counts of its
-    main path (the timed train_step loop)."""
+class StepRecorder:
+    """Test-only wrappers of ``train.sample_batch`` and ``train.step_losses``
+    (patched in while the recorder is entered): each step's batch
+    (``frames_set_t``, source and target frame indices), loss terms and
+    DeltaDINO learning rate (read from ``lr``, the schedule's device tensor)
+    go to row i of device buffers, i counted on the device, so a captured
+    step records every replay (a graph replayed past n steps overwrites the
+    first rows)."""
+
+    def __init__(self, n, cfg, dev, lr):
+        from dino_tracker_tpu_torch.training import train
+        self.train, self.lr = train, lr
+        self.i = torch.zeros(1, dtype=torch.long, device=dev)
+        long = lambda k: torch.full((n, k), -1, dtype=torch.long, device=dev)
+        self.frames = long(2 * cfg.batch_n_frames)
+        self.src, self.tgt = long(cfg.train_batch_size), long(cfg.train_batch_size)
+        self.losses = torch.zeros((n, len(train.METRICS)), device=dev)
+        self.lrs = torch.zeros(n, device=dev)
+
+    def sample_batch(self, *args, **kwargs):
+        s = self._sample(*args, **kwargs)
+        for buf, x in ((self.frames, s.frames_set_t), (self.src, s.source_frame_indices),
+                       (self.tgt, s.target_frame_indices)):
+            buf.index_copy_(0, self.i, x[None])
+        return s
+
+    def step_losses(self, *args, **kwargs):
+        total, metrics = self._losses(*args, **kwargs)
+        self.losses.index_copy_(0, self.i, torch.stack(
+            [metrics[k] for k in self.train.METRICS])[None])
+        self.lrs.index_copy_(0, self.i, self.lr.reshape(1))
+        self.i.add_(1).remainder_(len(self.losses))  # later replays wrap around
+        return total, metrics
+
+    def __enter__(self):
+        self._sample, self._losses = self.train.sample_batch, self.train.step_losses
+        self.train.sample_batch, self.train.step_losses = self.sample_batch, self.step_losses
+        return self
+
+    def __exit__(self, *exc):
+        self.train.sample_batch, self.train.step_losses = self._sample, self._losses
+
+
+def traced(fn):
+    """``fn()`` under torch.profiler tracing the card -> (wall ms, the
+    traced kernels' device ms, [runs of K1-fwd, runs of K1-bwd] as the card
+    ran them, a CUDA graph's replays included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return wall, busy, [sum(e.count for e in events if k in e.key) for k in K1_KERNELS]
+
+
+class GraphWatch:
+    """Test-only wrappers of ``step_graph.StepGraph`` (patched in while
+    entered): count its captures and the steps replayed; with ``trace``,
+    every replay call runs under ``traced``, TRACE_STEPS replays a trace,
+    and ``ran`` sums the K1-fwd and K1-bwd kernels the card ran in replays,
+    which no wrapper counts."""
+
+    def __init__(self, trace):
+        from dino_tracker_tpu_torch.training import step_graph
+        self.cls, self.trace = step_graph.StepGraph, trace
+        self.captures = self.replays = 0
+        self.ran = [0, 0]
+
+    def __enter__(self):
+        self._init, self._replay = self.cls.__init__, self.cls.replay
+        watch = self
+
+        def init(graph, *args, **kwargs):
+            watch._init(graph, *args, **kwargs)
+            watch.captures += 1
+
+        def replay(graph, n):
+            if watch.trace:
+                for k in range(0, n, TRACE_STEPS):
+                    ran = traced(lambda: watch._replay(graph, min(TRACE_STEPS, n - k)))[2]
+                    watch.ran = [a + b for a, b in zip(watch.ran, ran)]
+            else:
+                watch._replay(graph, n)
+            watch.replays += n
+
+        self.cls.__init__, self.cls.replay = init, replay
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.replay = self._init, self._replay
+
+
+@contextlib.contextmanager
+def eager_trainer(on=True):
+    """Test-only: while entered, the Trainer's ``StepRunner`` runs every step
+    eagerly on the card, as it does on the CPU."""
+    from dino_tracker_tpu_torch.training import train
+    runner = train.StepRunner
+
+    class Eager(runner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.graphed = False
+
+    if on:
+        train.StepRunner = Eager
+    try:
+        yield
+    finally:
+        train.StepRunner = runner
+
+
+def count_syncs(fn):
+    """The host syncs ``fn`` makes, as torch.cuda.set_sync_debug_mode("warn")
+    reports them (the autograd thread's included), each as the innermost
+    frames of the Python stack that made it."""
+    import traceback
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    found = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            found.append(" < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                    for f in stack[:-5:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return found
+
+
+def spread_rows(names, got, eager, base=None, floor=CHUNK_CHANGE_FLOOR):
+    """Per tensor: (name, e, s, bound, scale) with distances in the L2 norm
+    (a few elements whose gradient is float noise, which Adam turns into
+    full steps, would decide a largest-element distance): e the median over
+    the ``eager`` runs of |got - run|, s the eager runs' own spread (the
+    largest |run - run'| over pairs of them: index_add's atomics make every
+    run differ from the first step on), scale = |eager[0] - base| (the
+    change from ``base``; |eager[0]| without one) and bound =
+    CHUNK_TOL_FACTOR * s + floor * scale. A tensor passes where
+    e <= bound."""
+    rows = []
+    for j, name in enumerate(names):
+        runs = [r[j].double() for r in eager]
+        dist = lambda x, y: float((x - y).norm())
+        g = got[j].double()
+        scale = dist(runs[0], 0.0 if base is None else base[j].double())
+        s_j = max(dist(x, y) for k, x in enumerate(runs) for y in runs[k + 1:])
+        rows.append((name, float(np.median([dist(g, x) for x in runs])), s_j,
+                     CHUNK_TOL_FACTOR * s_j + floor * scale, scale))
+    return rows
+
+
+def spread_summary(kind, rows):
+    """(every tensor passed, a line on the worst one: its error, its spread
+    and its bound, each over the scale of its change)."""
+    ratio = lambda r: r[1] / r[3] if r[3] > 0 else (0.0 if r[1] == 0 else math.inf)
+    worst = max(rows, key=ratio)
+    rel = lambda v: f"{v / worst[4]:.3g}" if worst[4] > 0 else f"{v:.3g} (abs)"
+    return all(r[1] <= r[3] for r in rows), (
+        f"{kind}: {sum(r[1] <= r[3] for r in rows)}/{len(rows)} within, worst "
+        f"{worst[0]} at {ratio(worst):.3g} of its bound (error {rel(worst[1])}, spread "
+        f"{rel(worst[2])}, bound {rel(worst[3])} of its scale {worst[4]:.3g})")
+
+
+def params_summary(names, got, eager, base, steps, lr):
+    """``spread_summary`` of the parameters' change, but for the tensors
+    whose gradient is zero in exact math (MESH_NULL_GRADS: its float noise
+    sets the sign of each Adam step, so runs differ at random): those are
+    held to Adam's own limit instead, a change of at most 2·lr a step."""
+    keep = [j for j, n in enumerate(names) if n not in MESH_NULL_GRADS]
+    pick = lambda xs: [xs[j] for j in keep]
+    ok, line = spread_summary("parameters' change", spread_rows(
+        pick(names), pick(got), [pick(r) for r in eager], pick(base)))
+    for j, n in enumerate(names):
+        if n in MESH_NULL_GRADS:
+            moved = float((got[j].double() - base[j].double()).abs().max())
+            ok &= moved <= 2 * lr * steps  # each element's change
+            line += f"; {n} (noise) moved {moved:.3g}, limit {2 * lr * steps:.3g}"
+    return ok, line
+
+
+def model_state(model):
+    """(parameter names, parameters, BN-statistic names, BN statistics),
+    cloned."""
+    params = [(n, p.detach().clone()) for n, p in model.named_parameters()]
+    stats = [(n, b.clone()) for n, b in model.named_buffers() if "running" in n]
+    return ([n for n, _ in params], [p for _, p in params],
+            [n for n, _ in stats], [b for _, b in stats])
+
+
+def from_state(state, names):
+    return [state["model"][n] for n in names]
+
+
+def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
+    """The train step as the Trainer runs it on the card: a chunk of
+    CHUNK_STEPS (TrainConfig.steps_per_call) replays of one captured CUDA
+    graph (training/step_graph.py), against CHUNK_STEPS eager train_steps,
+    for each set of gates, each run from one state: CHUNK_START eager steps
+    from the Trainer's init (the schedule's count CHUNK_START, so the chunk
+    crosses apply_scheduler_every = 40), restored as a checkpoint is.
+
+    Checked: every step's batch (frames_set_t, source and target indices)
+    and DeltaDINO learning rate of the graph equal the eager run's, the rate
+    steps down by gamma where the count reaches 40 and equals
+    lr·gamma^(count // 40), consecutive batches differ; per loss term, per
+    parameter and per BN statistic, the graph's median L2 distance to eager
+    runs A, B and C is within CHUNK_TOL_FACTOR times their largest distance
+    between two of them, plus a floor: CHUNK_CHANGE_FLOOR of the parameters'
+    and statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
+    (``spread_rows``, ``params_summary``); no host sync under
+    torch.cuda.set_sync_debug_mode("error") over a replayed chunk; a step
+    with an .item() injected fails capture and raises. Timed in turns
+    (graph, eager, eager, graph chunks; host clock, synchronised): ms/iter
+    and peak memory of each; then TRACE_STEPS steps of each under
+    torch.profiler: the card's busy share, and the K1 kernels of the
+    replays counted."""
+    import copy
+    from dino_tracker_tpu_torch.training import train
+    every, gamma = cfg.apply_scheduler_every, cfg.scheduler_gamma
+
+    def fresh(state):
+        model = trainer.init_model().train()
+        opt, sched = train.make_optimizer(model, cfg)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        if state is not None:  # a copy: the optimizer would keep state's tensors
+            state = copy.deepcopy(state)
+            model.load_state_dict(state["model"])
+            train.load_optimizer_state(opt, state["optimizer"])
+            sched.load_state_dict(state["scheduler"])
+            gen.set_state(state["generator"])
+        return model, train.StepRunner(model, opt, sched, gen, cfg, tcfg)
+
+    def chunk(runner, gates, graphed, n=CHUNK_STEPS):
+        t0 = time.perf_counter()
+        if graphed:
+            runner.run(data, gates, gates, n)
+        else:
+            for _ in range(n):
+                runner.step(data, gates, gates)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for gates in (False, True):
+        model, runner = fresh(None)
+        for _ in range(CHUNK_START):
+            runner.step(data, gates, gates)
+        start = copy.deepcopy(train.train_state(model, runner.opt, runner.sched,
+                                                runner.generator, CHUNK_START))
+        p_names, _, b_names, _ = model_state(model)
+        del model, runner
+        runs, kept = {}, {}
+        for name in ("eager A", "eager B", "graph", "eager C"):
+            model, runner = fresh(start)
+            torch.cuda.reset_peak_memory_stats()
+            with StepRecorder(CHUNK_STEPS, cfg, dev, runner.sched.lr) as rec:
+                if name == "graph":  # the warm-up step and the capture, then replays
+                    ms = chunk(runner, gates, True, 1)
+                    chunk(runner, gates, True, CHUNK_STEPS - 1)
+                else:
+                    ms = chunk(runner, gates, False)
+            runs[name] = (rec, *model_state(model)[1::2], ms,
+                          torch.cuda.max_memory_allocated(), int(runner.sched.count))
+            if name in ("graph", "eager C"):
+                kept[name] = runner
+            del model, runner
+        a, g = runs["eager A"], runs["graph"]
+        check(all(torch.equal(getattr(g[0], k), getattr(a[0], k))
+                  for k in ("frames", "src", "tgt", "lrs")),
+              f"gates {gates}: the graph's batches or learning rates differ from the "
+              f"eager steps'")
+        same = [torch.equal(g[0].src[k], g[0].src[k + 1]) and torch.equal(
+            g[0].tgt[k], g[0].tgt[k + 1]) for k in range(CHUNK_STEPS - 1)]
+        check(not any(same), f"gates {gates}: replays drew the same batch: {same}")
+        lrs = g[0].lrs.double().cpu().numpy()
+        want = cfg.lr_delta_dino * gamma ** ((CHUNK_START + np.arange(CHUNK_STEPS)) // every)
+        cross = every - CHUNK_START
+        check(np.abs(lrs / want - 1).max() <= 1e-6 and lrs[cross] < lrs[cross - 1]
+              and g[5] == CHUNK_START + CHUNK_STEPS,
+              f"gates {gates}: the schedule inside the graph: rates {lrs}, expected "
+              f"{want}, count {g[5]}")
+        eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
+        loss_rows = spread_rows(train.METRICS, list(g[0].losses.T),
+                                [list(r[0].losses.T) for r in eager], floor=CHUNK_LOSS_FLOOR)
+        bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
+                              from_state(start, b_names))
+        verdicts = [spread_summary("losses", loss_rows),
+                    params_summary(p_names, g[1], [r[1] for r in eager],
+                                   from_state(start, p_names), CHUNK_STEPS,
+                                   cfg.lr_cnn_refiner),
+                    spread_summary("BN statistics' change", bn_rows)]
+        print(f"train chunks, gates {'on' if gates else 'off'}: {CHUNK_STEPS} replays vs "
+              f"{CHUNK_STEPS} eager steps from one state at count {CHUNK_START}: batches "
+              f"and learning rates equal (the rate x{lrs[cross] / lrs[cross - 1]:.6f} at "
+              f"count {every}), consecutive batches differ; each tensor's median L2 distance "
+              f"to eager A, B, C against {CHUNK_TOL_FACTOR:g}x their spread + "
+              f"{CHUNK_LOSS_FLOOR:g} of a loss term, {CHUNK_CHANGE_FLOOR:g} of a change: "
+              + "; ".join(v[1] for v in verdicts)
+              + f"; the warm-up step and the capture {g[3]:.1f} ms, peak allocated "
+              f"{g[4] / 2**30:.2f} GiB (eager A {a[4] / 2**30:.2f})", flush=True)
+        check(all(v[0] for v in verdicts),
+              f"gates {gates}: the graph disagrees with the eager steps: "
+              + "; ".join(v[1] for v in verdicts if not v[0]))
+
+        graph, eager = kept["graph"], kept["eager C"]
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chunk(graph, gates, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        times, peaks = {True: [], False: []}, {True: 0, False: 0}
+        for graphed in (True, False, False, True):
+            torch.cuda.reset_peak_memory_stats()
+            times[graphed].append(chunk(graph if graphed else eager, gates, graphed))
+            peaks[graphed] = max(peaks[graphed], torch.cuda.max_memory_allocated())
+        busy = {}
+        for graphed in (True, False):
+            wall, device_ms, ran = traced(
+                lambda: chunk(graph if graphed else eager, gates, graphed, TRACE_STEPS))
+            busy[graphed] = (wall / TRACE_STEPS, device_ms / wall)
+            if graphed:
+                check(ran == [3 * TRACE_STEPS] * 2, f"gates {gates}: the card ran K1-fwd / "
+                      f"K1-bwd {ran} times in {TRACE_STEPS} replays")
+        graph.release()
+        eager.release()
+        del graph, eager, kept
+        print(f"train chunks, gates {'on' if gates else 'off'}: a replayed chunk under "
+              f"set_sync_debug_mode('error'): no sync; in turns (graph, eager, eager, graph; "
+              f"{CHUNK_STEPS} steps each): graphed {', '.join(f'{t:.2f}' for t in times[True])} "
+              f"ms/iter, eager {', '.join(f'{t:.2f}' for t in times[False])} ms/iter; peak "
+              f"allocated while replaying {peaks[True] / 2**30:.2f} GiB (the graph's pool, "
+              f"reserved at capture, not counted), eager {peaks[False] / 2**30:.2f} GiB; "
+              f"under torch.profiler ({TRACE_STEPS} steps): graphed {busy[True][0]:.2f} "
+              f"ms/iter, the card busy {busy[True][1]:.4f} of it (K1-fwd and K1-bwd ran "
+              f"{3 * TRACE_STEPS} times each in the replays), eager {busy[False][0]:.2f} ms/iter, busy "
+              f"{busy[False][1]:.4f} [{smi}]", flush=True)
+
+    # a step that syncs: the capture raises and names the line
+    model, runner = fresh(None)
+    losses = train.step_losses
+
+    def syncing(*args, **kwargs):
+        total, metrics = losses(*args, **kwargs)
+        total.item()
+        return total, metrics
+
+    train.step_losses = syncing
+    try:
+        runner.run(data, False, False, 2)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        train.step_losses = losses
+    check(raised is not None and "total.item()" in raised,
+          f"a step with an .item() was captured: {raised}")
+    print(f"train chunks: a step with .item() injected fails capture: {raised[:300]}",
+          flush=True)
+    del model, runner
+
+
+def phase_train_resume(dev, long, tcfg, data, ckpt_folder, log_interval, names):
+    """A checkpoint the Trainer wrote after replays, resumed: from
+    ``ckpt_folder``'s state_<TRAINER_CHECKPOINT>.pt (run R, phase 5's main
+    path), the Trainer to ``long.total_iterations`` three times eagerly (E1,
+    E2, E3) and once in chunks of replays (S). Checked: the generator state
+    of every final checkpoint equals R's bit for bit (R saved the state its
+    replays left, the one they continued from), and so do the schedule's
+    count and Adam's step counts; R's and S's parameters and BN statistics,
+    as changes from the resumed checkpoint, each lie from E1-E3 (the median
+    distance) within CHUNK_TOL_FACTOR times their own spread plus
+    CHUNK_CHANGE_FLOOR of the change's scale. ``names``: the model's parameter
+    and BN-statistic names (``model_state``)."""
+    from dino_tracker_tpu_torch.training import checkpoint
+    from dino_tracker_tpu_torch.training import train
+    end = long.total_iterations
+    start = checkpoint.load_state(ckpt_folder, TRAINER_CHECKPOINT, map_location=dev)
+    finals = {"R": checkpoint.load_state(ckpt_folder, end, map_location=dev)}
+    for name in ("E1", "E2", "S", "E3"):
+        folder = os.path.join(WORK_DIR, "resume", name)
+        shutil.rmtree(folder, ignore_errors=True)
+        os.makedirs(folder)
+        shutil.copy(checkpoint.checkpoint_file(ckpt_folder, TRAINER_CHECKPOINT), folder)
+        with eager_trainer(name != "S"):
+            train.Trainer(long, tcfg, data, folder, seed=2, device=dev).train(
+                log_interval=log_interval)
+        finals[name] = checkpoint.load_state(folder, end, map_location=dev)
+    gen, counts = {}, {}
+    for name, s in finals.items():
+        gen[name] = torch.equal(s["generator"], finals["R"]["generator"])
+        counts[name] = (s["scheduler"]["last_epoch"],
+                        sorted({int(v["step"]) for v in s["optimizer"]["state"].values()}))
+    check(all(gen.values()) and all(c == (end, [end]) for c in counts.values()),
+          f"resumed runs' generator equal to R's {gen}, (schedule count, Adam steps) "
+          f"{counts}, expected {end}")
+    p_names, b_names = names
+    eager = [finals[k] for k in ("E1", "E2", "E3")]
+    lines, ok = [], True
+    for name in ("R", "S"):
+        at = lambda names: (from_state(finals[name], names),
+                            [from_state(e, names) for e in eager], from_state(start, names))
+        for good, line in (
+                params_summary(p_names, *at(p_names),
+                               end - TRAINER_CHECKPOINT, long.lr_cnn_refiner),
+                spread_summary("BN statistics' change",
+                               spread_rows(b_names, *at(b_names)))):
+            ok &= good
+            lines.append(f"{name} {line}")
+    print(f"train resume: from R's state_{TRAINER_CHECKPOINT}.pt (written after replays) "
+          f"to {end}, eagerly three times (E1-E3) and in chunks of replays (S): every final "
+          f"generator state equal to R's, schedule count and Adam steps {end}; each "
+          f"tensor's median L2 distance to E1-E3 against {CHUNK_TOL_FACTOR:g}x their spread + "
+          f"{CHUNK_CHANGE_FLOOR:g} of its change: " + "; ".join(lines), flush=True)
+    check(ok, "a run resumed from a checkpoint written after replays left the eager runs")
+
+
+def phase_train(bp, dev, video, dino, smi):
+    """The training slice at full width; returns the K1-fwd and K1-bwd
+    launches of its main path: the timed train_step loop (the wrappers'
+    counts) and the Trainer's run in chunks (the wrappers' counts of its
+    eager warm-up steps, and the kernels the card ran in its replays, traced
+    by torch.profiler)."""
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from dino_tracker_tpu_torch.training import checkpoint, train
@@ -635,6 +1120,11 @@ def phase_train(bp, dev, video, dino):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
+    # the main path: the train step, then the Trainer in chunks from its init
+    long = dataclasses.replace(cfg, total_iterations=TRAINER_ITERATIONS,
+                               checkpoint_interval=TRAINER_CHECKPOINT,
+                               apply_cyc_after=TRAINER_GATES,
+                               apply_cl_ref_after=TRAINER_GATES)
     reset_counts()
     first_ms = run(1, False)
     run(WARMUP_STEPS - 1, False)
@@ -643,12 +1133,23 @@ def phase_train(bp, dev, video, dino):
     run(WARMUP_STEPS - 1, True)
     on_ms = run(ON_STEPS, True)
     m_on = history[-1]
-    launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
-    steps = len(history)
-    check(launches == (3 * steps, 3 * steps),
-          f"K1-fwd / K1-bwd launched {launches} times in {steps} train steps, "
-          f"expected {3 * steps} each")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = [count_syncs(lambda: train.train_step(model, opt, sched, data, gen, g, g, cfg,
+                                                   tcfg)) for g in (False, True)]
+    t0 = time.perf_counter()
+    with GraphWatch(trace=True) as watch:
+        train.Trainer(long, tcfg, data, ckpt_folder, seed=2, device=dev).train(
+            log_interval=TRAINER_LOG)
+    trainer_s = time.perf_counter() - t0
+    calls = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
+    launches = (calls[0] + watch.ran[0], calls[1] + watch.ran[1])
+    eager_steps = len(history) + 2 + watch.captures
+    check(calls == (3 * eager_steps,) * 2 and watch.ran == [3 * watch.replays] * 2
+          and watch.captures == 2 and watch.captures + watch.replays == TRAINER_ITERATIONS,
+          f"K1-fwd / K1-bwd: the wrappers launched {calls} times in {eager_steps} eager "
+          f"steps, the card ran {watch.ran} in {watch.replays} replays of "
+          f"{watch.captures} captures; expected 3 a step, 2 captures (one a set of gates) "
+          f"and {TRAINER_ITERATIONS} steps of the Trainer")
     values = torch.stack([torch.stack(list(m.values())) for m in history])
     check(bool(values.isfinite().all()), "a non-finite loss term")
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -657,33 +1158,40 @@ def phase_train(bp, dev, video, dino):
     moved = sum(not torch.equal(a, p) for a, p in zip(init, model.parameters()))
     check(moved == len(grads), f"{moved} parameter tensors moved, "
           f"{len(grads)} have gradients")
+    steps_saved = checkpoint.checkpoint_steps(ckpt_folder)
+    check(steps_saved == [TRAINER_ITERATIONS, TRAINER_CHECKPOINT],
+          f"Trainer wrote checkpoints {steps_saved}")
+    names = model_state(model)[::2]
+    del model, opt, sched, history
     fmt = lambda m: ", ".join(f"{k} {float(v):.6g}" for k, v in m.items())
     print(f"train: T={T} {W}x{H} C={CHANNELS[-1]} bf16, batch "
           f"{cfg.train_batch_size}x{cfg.batch_n_frames} frames, "
           f"{N_FG_TRAJ}+{N_BG_TRAJ} trajectories: first step {first_ms:.1f} ms, "
           f"gates off {off_ms:.2f} ms/iter ({OFF_STEPS} steps), gates on "
-          f"{on_ms:.2f} ms/iter ({ON_STEPS} steps), peak memory {peak:.2f} GiB, "
-          f"{steps} steps, K1-fwd/K1-bwd launches {launches}", flush=True)
+          f"{on_ms:.2f} ms/iter ({ON_STEPS} steps), peak memory {peak:.2f} GiB; host "
+          f"syncs in a train_step with the gates off / on: {len(syncs[0])} / "
+          f"{len(syncs[1])}; the Trainer {TRAINER_ITERATIONS} iterations in chunks (gates "
+          f"at {TRAINER_GATES}, checkpoints {steps_saved}, replays traced) {trainer_s:.2f} s: "
+          f"{watch.captures} captures, {watch.replays} replays; K1-fwd/K1-bwd launches "
+          f"{launches} (wrappers {calls}, traced in replays {tuple(watch.ran)})", flush=True)
+    check(syncs == [[], []], f"the train step makes host syncs (gates off / on): {syncs}")
     print(f"train: losses, gates off: {fmt(m_off)}", flush=True)
     print(f"train: losses, gates on: {fmt(m_on)}", flush=True)
 
-    # the Trainer loop across a phase boundary, then serve its checkpoint
-    short = dataclasses.replace(cfg, total_iterations=4, checkpoint_interval=2,
-                                apply_cyc_after=2, apply_cl_ref_after=2)
+    phase_train_chunks(dev, trainer, cfg, tcfg, data, smi)
+    phase_train_resume(dev, long, tcfg, data, ckpt_folder, TRAINER_LOG, names)
+
+    # serve the Trainer's last checkpoint
     t0 = time.perf_counter()
-    train.Trainer(short, tcfg, data, ckpt_folder, seed=2, device=dev).train(
-        log_interval=2)
-    steps_saved = checkpoint.checkpoint_steps(ckpt_folder)
-    check(steps_saved == [4, 2], f"Trainer wrote checkpoints {steps_saved}")
     served = runtime.load_model(ckpt_folder, tcfg, dev)
     mi = runtime.make_model_inference(served, video, dino, tcfg, ANCHOR_COS, COS)
     qp = queries(np.random.default_rng(7), N_QUERIES, T // 5, H, W)
     trajs, occ = mi.infer(qp)
     check(trajs.shape == (N_QUERIES, T, 2) and occ.shape == (N_QUERIES, T)
           and np.isfinite(trajs).all(), "serving the trained checkpoint failed")
-    print(f"train: Trainer 4 iterations + checkpoints {steps_saved} + serve "
-          f"{N_QUERIES} points from state_4.pt: {time.perf_counter() - t0:.2f} s, "
-          f"tracks finite, occluded share {occ.mean():.3f}", flush=True)
+    print(f"train: serve {N_QUERIES} points from state_{TRAINER_ITERATIONS}.pt: "
+          f"{time.perf_counter() - t0:.2f} s, tracks finite, occluded share "
+          f"{occ.mean():.3f}", flush=True)
     return launches
 
 
@@ -1790,7 +2298,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
 
     reset_counts()
     t0 = time.perf_counter()
-    launcher = run_benchmark.main(args + ["--claim-dir", claims])
+    with GraphWatch(trace=False) as watch:  # untraced, so the stage timers are too
+        launcher = run_benchmark.main(args + ["--claim-dir", claims])
     run_s = time.perf_counter() - t0
     launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
                 fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
@@ -1803,12 +2312,17 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
 
     ids = [str(i) for i in range(len(shifts))]
     n = len(ids)
-    expected = (n * (3 * iterations + 3 * -(-t // 16)), n * 3 * iterations,
+    # K1 in the refine (3 launches a 16-frame chunk) and in the train steps
+    # the wrappers launch: each capture's warm-up step; the replays' are not
+    # traced here (phase 5 traces them)
+    expected = (n * 3 * -(-t // 16) + 3 * watch.captures, 3 * watch.captures,
                 n * (max(pcfg.dino_layer, pcfg.mask_dino_layer) + 1)
                 * -(-t // pcfg.extract_frames_per_batch),
                 n * pcfg.raft_iters * decode_batches(t))
-    check(launches == expected, f"K1-fwd / K1-bwd / K2 / K3 launched {launches} times "
-          f"in the whole system, expected {expected}")
+    check(launches == expected and watch.captures + watch.replays == n * iterations,
+          f"K1-fwd / K1-bwd / K2 / K3 launched {launches} times in the whole system, "
+          f"expected {expected}; {watch.captures} captured and {watch.replays} replayed "
+          f"train steps, expected {n * iterations}")
     for vid in ids:
         check(os.path.exists(os.path.join(claims, f"{vid}.done")), f"video {vid} not done")
         check(vid in launcher.reports, f"no report for video {vid}")
@@ -1876,7 +2390,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
           f"{mib(cleared - base)}, bound {E2E_MEMORY_MARGIN / 2**20:.0f}); live CUDA "
           f"tensors (count, bytes) {live_cuda_tensors()}; "
           f"launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 {launches[2]}, "
-          f"K3 {launches[3]}; TrainConfig batch {tcfg.train_batch_size} x "
+          f"K3 {launches[3]}; train steps {watch.captures} captured (each a warm-up step), "
+          f"{watch.replays} replayed; TrainConfig batch {tcfg.train_batch_size} x "
           f"{tcfg.batch_n_frames} frames, {tcfg.compute_dtype}", flush=True)
     return launches
 
@@ -2098,7 +2613,10 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
         return reports, time.perf_counter() - t0
 
     train_args = lambda d: ["--config", train_yaml, "--data-path", d, "--device", dev.type]
-    trained = {w: run(train_cli, train_args(dirs[w]), w) for w in (n_ranks, 1)}
+    trained = {}
+    for w in (n_ranks, 1):  # one device trains in chunks of replays, ranks eagerly
+        with GraphWatch(trace=False) as watch:
+            trained[w] = run(train_cli, train_args(dirs[w]), w) + (watch,)
     for w, d in dirs.items():
         steps = checkpoint.checkpoint_steps(os.path.join(d, "models", "dino_tracker"))
         check(steps == [iterations, gates_at], f"--devices {w} wrote checkpoints {steps}")
@@ -2153,14 +2671,20 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
     flips = sum(int((served[n_ranks][2][f][1] != served[1][2][f][1]).sum()) for f in frames)
     finite = all(np.isfinite(served[w][2][f][0]).all() for w in served for f in frames)
 
-    # launches: each rank's DeltaDINO runs 3 blurpools a train step (its
-    # share of the frame set) and 3 a 16-frame refine chunk of its frames
+    # launches: each rank's DeltaDINO runs 3 blurpools an eager train step
+    # (its share of the frame set) and 3 a 16-frame refine chunk of its
+    # frames; one device steps eagerly only to warm up each capture
     refine = lambda w: [3 * -(-s // 16) for s in mesh_lib.split_sizes(t, w)]
     for w in (n_ranks, 1):
         got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["blurpool_up_nhwc"])
                for r in trained[w][0]]
-        check(got == [(3 * iterations, 3 * iterations)] * w,
-              f"--devices {w} training launched K1-fwd / K1-bwd {got} times per rank")
+        watch = trained[w][2]
+        eager = iterations if w > 1 else watch.captures
+        check(got == [(3 * eager, 3 * eager)] * w and (
+            w > 1 or watch.captures + watch.replays == iterations),
+              f"--devices {w} training launched K1-fwd / K1-bwd {got} times per rank, "
+              f"expected {3 * eager} ({watch.captures} captured, {watch.replays} replayed "
+              f"steps in this process)")
         for what, runs in (("inference", served), ("inference past the truncated file",
                                                    fallback)):
             got = [r["launches"]["blurpool_down_nhwc"] for r in runs[w][0]]
@@ -2440,6 +2964,8 @@ def main():
     ap.add_argument("--e2e-iterations", type=int, default=0,
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the K1 build and the training slice (phase 5)")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run only the kernel builds, the launches on cuda:1 and "
                          "phases 13 and 12 with this many ranks, one card each over "
@@ -2503,6 +3029,13 @@ def main():
                                raft_path, "--dino-checkpoint", vit_path], n, False, smis, t)
         print_ok()
         return
+    if args.train_only:  # the training slice alone, on phase 4's inputs
+        from dino_tracker_tpu_torch.config import TrackerConfig
+        build_kernels([("blurpool.cu", bp)])
+        video, dino = make_inputs(T, H, W, CHANNELS[-1], TrackerConfig(
+            video_h=H, video_w=W, delta_channels=CHANNELS).feat_hw, dev, 1)
+        phase_train(bp, dev, video, dino, smi)
+        return
     if args.preprocess_frames:  # the preprocess CLI alone
         build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
         phase_preprocess(dev, args.preprocess_frames)
@@ -2538,7 +3071,7 @@ def main():
     k2 = phase_attention_check(dev)
     k3 = phase_corr_lookup_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
-    train_launches = phase_train(bp, dev, video, dino)
+    train_launches = phase_train(bp, dev, video, dino, smi)
     del video, dino
     vit_launches, vit_s = phase_vit(dev)
     print(f"vit: K2 {vit_launches} launches x {k2['ms']:.3f} ms (phase 3) = "

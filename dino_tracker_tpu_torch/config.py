@@ -117,7 +117,9 @@ class TrainConfig:
     # padded best-buddy capacity; None = adaptive
     bb_max_pairs_per_frame_pair: Optional[int] = None
     compute_dtype: str = "bfloat16"  # conv/GEMM operand dtype
-    steps_per_call: int = 25  # read for file compatibility; the port steps one at a time
+    # train iterations a chunk, as the JAX trainer's lax.scan; on a card with
+    # no mesh, replays of one captured CUDA graph (training/step_graph.py)
+    steps_per_call: int = 25
 
     @property
     def dino_embed_dim(self) -> int:

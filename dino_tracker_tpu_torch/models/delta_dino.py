@@ -47,6 +47,19 @@ class DeltaDINO(nn.Module):
         self.layers = nn.ModuleList(
             Layer(channels[i], channels[i + 1])
             for i in range(len(channels) - 1))
+        # the resample matrices of each (grid sizes, device), uploaded once:
+        # an upload in every forward synchronised the host with the card and
+        # could not be captured into a CUDA graph
+        self._align = {}
+
+    def align_matrices(self, vit_hw, cnn_hw, vit_patch_size: int,
+                       vit_stride: int, device: torch.device):
+        """``_align_matrices`` for this model, made once per arguments."""
+        key = (tuple(vit_hw), tuple(cnn_hw), vit_patch_size, vit_stride, device)
+        if key not in self._align:
+            self._align[key] = _align_matrices(vit_hw, cnn_hw, vit_patch_size,
+                                               vit_stride, total_stride(), device)
+        return self._align[key]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -95,12 +108,11 @@ class DeltaDINO(nn.Module):
                 x = torch.relu(x)
             if DOWNSAMPLE[i]:
                 x = pnn.blurpool(x, stride=DOWN_STRIDE)
+        mats = self.align_matrices(vit_hw, x.shape[1:3], vit_patch_size,
+                                   vit_stride, x.device)
         if channels_last:
-            return align_cnn_vit_features_nhwc(vit_hw, x, vit_patch_size,
-                                               vit_stride, total_stride())
-        return align_cnn_vit_features(vit_hw, x.permute(0, 3, 1, 2),
-                                      vit_patch_size, vit_stride,
-                                      total_stride())
+            return align_cnn_vit_features_nhwc(x, mats)
+        return align_cnn_vit_features(x.permute(0, 3, 1, 2), mats)
 
 
 def _bilinear_axis_matrix(coords_norm, in_size: int) -> np.ndarray:
@@ -134,22 +146,16 @@ def _align_matrices(vit_hw, cnn_hw, vit_patch_size, vit_stride, cnn_stride,
     return wy, wx
 
 
-def align_cnn_vit_features(vit_hw, cnn_features_nchw, vit_patch_size: int = 14,
-                           vit_stride: int = 7, cnn_stride: int = 8):
-    """Bilinear-resample N×C×ch×cw CNN features onto the ViT grid (f32)."""
-    wy, wx = _align_matrices(vit_hw, cnn_features_nchw.shape[-2:],
-                             vit_patch_size, vit_stride, cnn_stride,
-                             cnn_features_nchw.device)
+def align_cnn_vit_features(cnn_features_nchw, matrices):
+    """Bilinear-resample N×C×ch×cw CNN features onto the ViT grid (f32) with
+    ``matrices``, ``_align_matrices``'s (wy, wx) for their sizes."""
+    wy, wx = matrices
     out = torch.einsum("oh,nchw->ncow", wy, cnn_features_nchw.float())
     return torch.einsum("pw,ncow->ncop", wx, out)
 
 
-def align_cnn_vit_features_nhwc(vit_hw, cnn_features_nhwc,
-                                vit_patch_size: int = 14, vit_stride: int = 7,
-                                cnn_stride: int = 8):
+def align_cnn_vit_features_nhwc(cnn_features_nhwc, matrices):
     """Channels-last twin: N×ch×cw×C -> N×vh×vw×C (f32)."""
-    wy, wx = _align_matrices(vit_hw, cnn_features_nhwc.shape[1:3],
-                             vit_patch_size, vit_stride, cnn_stride,
-                             cnn_features_nhwc.device)
+    wy, wx = matrices
     out = torch.einsum("oh,nhwc->nowc", wy, cnn_features_nhwc.float())
     return torch.einsum("pw,nowc->nopc", wx, out)

@@ -79,6 +79,13 @@ def _check_hw(h: int, w: int):
         raise ValueError(f"reflect pad 2 needs H, W >= 3, got H={h}, W={w}")
 
 
+def _count(wrapper):
+    """One more launch on ``wrapper``'s count, unless a CUDA graph capture
+    only recorded it (its replays run no Python)."""
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        wrapper.launches += 1
+
+
 def _launch(x: torch.Tensor) -> torch.Tensor:
     _check(x, "blurpool_cuda")
     _check_hw(x.shape[1], x.shape[2])
@@ -91,7 +98,7 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
                                      _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_down_nhwc launch failed: CUDA error {err}")
-    blurpool_cuda.launches += 1
+    _count(blurpool_cuda)
     return y
 
 
@@ -117,11 +124,11 @@ def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
                                    _DTYPE_CODE[g_nhwc.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_up_nhwc launch failed: CUDA error {err}")
-    blurpool_cuda_bwd.launches += 1
+    _count(blurpool_cuda_bwd)
     return gx
 
 
-blurpool_cuda_bwd.launches = 0  # kernel launches since the last reset
+blurpool_cuda_bwd.launches = 0  # kernel launches since the last reset, not captures
 
 
 class _BlurPoolDown(torch.autograd.Function):
@@ -144,7 +151,7 @@ def blurpool_cuda(x_nhwc: torch.Tensor) -> torch.Tensor:
     return _BlurPoolDown.apply(x_nhwc)
 
 
-blurpool_cuda.launches = 0  # kernel launches since the last reset
+blurpool_cuda.launches = 0  # kernel launches since the last reset, not captures
 
 
 def blurpool(x_nhwc: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 from ..config import TrackerConfig
 from ..models import tracker
 from ..parallel import mesh as mesh_lib
+from ..utils.constants import device_constant
 from . import losses
 
 
@@ -73,8 +74,8 @@ def cycle_data_from_points(model, frame_embeddings, frames_set_t,
     with the grouped path (one target frame per pair) and keep those that
     return within ``thresh`` px (JAX cycle.py:68-108)."""
     n_pairs, k, _ = coords.shape
-    scale = torch.tensor([cfg.video_w - 1, cfg.video_h - 1],
-                         dtype=torch.float32, device=coords.device)
+    scale = device_constant((cfg.video_w - 1, cfg.video_h - 1), torch.float32,
+                            coords.device)
 
     def with_t(xy, sel):
         t = frames_set_t[sel].float()[:, None, None].expand(n_pairs, k, 1)
@@ -120,8 +121,8 @@ def cycle_loss_from_preds(both_preds, data: CycleData, cfg: TrackerConfig,
     share of the points passes the global count)."""
     p = data.source_points.shape[0]
     st, ts = both_preds[:p], both_preds[p:]
-    scale = torch.tensor([cfg.video_w - 1, cfg.video_h - 1],
-                         dtype=torch.float32, device=both_preds.device)
+    scale = device_constant((cfg.video_w - 1, cfg.video_h - 1), torch.float32,
+                            both_preds.device)
     tgt_norm = 2.0 * data.target_points[:, :2] / scale - 1.0
     src_norm = 2.0 * data.source_points[:, :2] / scale - 1.0
     weight = (gamma ** data.dists) * data.valid

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.constants import device_constant
 from .losses import gumbel
 
 MAX_FRAME_TRIES = 32
@@ -80,8 +81,11 @@ def _sample_bank(generator, bank: TrajectoryBank, num_frames: int,
     eligible_all = _eligible(bank, tries)                     # N×32
     counts = eligible_all.sum(0)
     ok = counts >= 2
-    pick = torch.where(ok.any(), torch.argmax(ok.int()), MAX_FRAME_TRIES - 1)
-    frame_idx, eligible = tries[pick], eligible_all[:, pick]
+    pick = torch.where(ok.any(), torch.argmax(ok.int()), MAX_FRAME_TRIES - 1)[None]
+    # index_select, not tries[pick]: indexing with a 0-dim CUDA tensor reads
+    # it back to the host
+    frame_idx = tries.index_select(0, pick)[0]
+    eligible = eligible_all.index_select(1, pick)[:, 0]
     # Fallback for a draw with no eligible row: frames from row 0's own
     # visibility (build_bank guarantees every real row has >= 2 valid frames),
     # which makes at least row 0 eligible; otherwise the picks below would be
@@ -89,7 +93,7 @@ def _sample_bank(generator, bank: TrajectoryBank, num_frames: int,
     g0 = gumbel((t,), generator, dev).masked_fill(~bank.valid[0], -torch.inf)
     fb_idx = torch.topk(g0, num_frames).indices
     fb_eligible = _eligible(bank, fb_idx)
-    use_fb = counts[pick] == 0
+    use_fb = counts.index_select(0, pick)[0] == 0
     frame_idx = torch.where(use_fb, fb_idx, frame_idx)
     eligible = torch.where(use_fb, fb_eligible, eligible)
     n_eligible = eligible.sum()
@@ -175,8 +179,8 @@ def sample_batch(generator, fg_bank: TrajectoryBank, bg_bank: TrajectoryBank,
     frames_set_t = torch.where(frames_sorted >= video_len, frames_sorted[0],
                                frames_sorted)
 
-    normalizer = torch.tensor([video_w - 1, video_h - 1, video_len - 1],
-                              dtype=torch.float32, device=t1_points.device)
+    normalizer = device_constant((video_w - 1, video_h - 1, video_len - 1),
+                                 torch.float32, t1_points.device)
     t1_norm = 2.0 * t1_points / normalizer - 1.0
     t2_norm = 2.0 * t2_points / normalizer - 1.0
     # the reference keeps t1 x/y in pixels but normalizes its t (dataset.py:246)
@@ -189,7 +193,9 @@ class BankRotator:
     """Host-RAM trajectory windowing for long videos (reference
     ``keep_traj_in_cpu`` / ``load_next_batch``, data/dataset.py:70-131): the
     full sets stay in host RAM and fixed-size windows, padded to the window
-    size, rotate onto the device."""
+    size, rotate onto the device. ``advance`` writes the next window into the
+    tensors of the banks ``current`` handed out, so a train step captured as
+    a CUDA graph (``step_graph.py``) reads the new window."""
 
     def __init__(self, fg_trajectories: np.ndarray, bg_trajectories: np.ndarray,
                  window: int = 200_000, device=None):
@@ -199,24 +205,37 @@ class BankRotator:
         self._bg = self._prep(bg_trajectories)
         self._fg_idx = 0
         self._bg_idx = 0
+        self._banks = None
 
     @staticmethod
     def _prep(traj):
         valid = ~np.isnan(traj).any(axis=-1)
         return traj[valid.sum(axis=1) > 1]
 
-    def _window(self, traj, start):
+    def _window(self, traj, start, device):
         n = traj.shape[0]
         if n > self.window:
             traj = traj[(start + np.arange(self.window)) % n]
-        return build_bank(traj, pad_to=self.window, device=self.device)
+        return build_bank(traj, pad_to=self.window, device=device)
 
     def current(self):
-        return (self._window(self._fg, self._fg_idx),
-                self._window(self._bg, self._bg_idx))
+        """The (fg, bg) banks of the current window on the device."""
+        if self._banks is None:
+            self._banks = (self._window(self._fg, self._fg_idx, self.device),
+                           self._window(self._bg, self._bg_idx, self.device))
+        return self._banks
 
     def advance(self):
-        """Rotate to the next window (reference ``load_next_batch``)."""
+        """Rotate to the next window (reference ``load_next_batch``), copied
+        into the current banks' tensors; returns those banks. A window holds
+        as many rows as the one before, so the counts stay."""
         self._fg_idx = (self._fg_idx + self.window) % max(self._fg.shape[0], 1)
         self._bg_idx = (self._bg_idx + self.window) % max(self._bg.shape[0], 1)
-        return self.current()
+        if self._banks is None:
+            return self.current()
+        for bank, traj, start in zip(self._banks, (self._fg, self._bg),
+                                     (self._fg_idx, self._bg_idx)):
+            new = self._window(traj, start, None)
+            bank.coords.copy_(new.coords)
+            bank.valid.copy_(new.valid)
+        return self._banks

@@ -8,10 +8,19 @@ build one ``FrameView`` shared by every loss term, compute the six losses
 (optical flow, cycle consistency, the two best-buddy contrastive terms and
 the two refined-embedding regularisers), backpropagate and take one Adam
 step. Phase gates switch cycle consistency and the refined-buddy term on at
-``apply_cyc_after`` / ``apply_cl_ref_after``. PyTorch runs eagerly, so the
-JAX package's two compiled phase variants and its ``steps_per_call``
-``lax.scan`` chunking have no counterpart: the loop runs one step per
-iteration.
+``apply_cyc_after`` / ``apply_cl_ref_after``. The step makes no host sync
+and no upload from host memory: the schedule's learning rate is device
+state (``LRSchedule``) and the constants it needs are made once.
+
+The loop runs the JAX trainer's chunks: ``next_chunk`` gives the longest run
+of at most ``cfg.steps_per_call`` steps that crosses no phase gate, log,
+checkpoint or bank rotation, and within it the host does no work between
+steps and reads nothing back (``StepRunner``). On a CUDA device with no mesh
+a chunk is n replays of one captured CUDA graph of the whole step
+(``step_graph.StepGraph``), captured once per variant as the JAX
+``Trainer._step_fn`` compiles one program per phase and ``fg_batch``; on the
+CPU and on a mesh (gloo's collectives cannot be captured) it is the eager
+step n times.
 
 Parallelism (``mesh``, ``parallel/mesh.py``): every rank holds the same
 parameters and the same generator, so every rank draws the single-device
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 from typing import NamedTuple, Optional
 
@@ -46,6 +56,7 @@ from ..utils.profiling import stage_timer
 from . import checkpoint as ckpt_lib
 from . import contrastive, cycle, losses
 from .sampler import TrajectoryBank, TrainSample, resolve_fg_batch, sample_batch
+from .step_graph import StepGraph
 
 logger = logging.getLogger(__name__)
 
@@ -63,31 +74,92 @@ class VideoData(NamedTuple):
     bg_bank: TrajectoryBank
 
 
+class LRSchedule:
+    """DeltaDINO's learning rate as device state: ``lr`` (the tensor its
+    Adam group reads) holds lr·γ^(k // every) for the k-th update, k counted
+    from 0, computed on the device from the update count in f32 as optax's
+    ``dd_schedule`` is inside the JAX program (train.py:62-64). A captured
+    step advances it with no host work, including across an ``every``
+    boundary inside a chunk. ``state_dict`` keeps LambdaLR's ``last_epoch``
+    (the count), the layout of checkpoints written before."""
+
+    def __init__(self, lr: torch.Tensor, base: float, gamma: float, every: int):
+        self.lr = lr
+        self.count = torch.zeros((), dtype=torch.int64, device=lr.device)
+        self._base, self._every = base, every
+        self._gamma = torch.full((), gamma, dtype=torch.float32, device=lr.device)
+        self._write()
+
+    def _write(self):
+        self.lr.copy_(self._base * torch.pow(self._gamma, self.count // self._every))
+
+    def step(self):
+        """After an update: the next update's rate."""
+        self.count += 1
+        self._write()
+
+    def state_dict(self) -> dict:
+        """Reads the count back (a host sync)."""
+        return {"last_epoch": int(self.count)}
+
+    def load_state_dict(self, state: dict):
+        self.count.fill_(int(state["last_epoch"]))
+        self._write()
+
+
 def make_optimizer(model: tracker.Tracker, cfg):
     """Adam per parameter group with the reference's learning rates
     (optimization/schedulers.py:4-8, dino_tracker.py:110-121), as the JAX
-    ``make_optimizer`` builds them from optax.
+    ``make_optimizer`` builds them from optax. Returns (optimizer,
+    ``LRSchedule``); step the schedule after each update.
+
+    DeltaDINO's group reads its learning rate from the schedule's device
+    tensor; the head's is a constant. On CUDA the optimizer is
+    ``capturable``: its step counts and bias corrections stay on the device
+    (in f32, as optax computes them), so a CUDA graph can hold the update.
+    The CPU has no capturable Adam: there the corrections are f64 host
+    numbers.
 
     Trap (optimizer equivalence): optax's ``scale_by_adam`` defaults are
     β = (0.9, 0.999) and ε = 1e-8 added outside the square root, with no
-    weight decay — torch's Adam update is the same. DeltaDINO's learning rate
-    is lr·γ^(k // every) for the k-th update, k counted from 0 as optax's
-    schedule ``count`` is: a ``LambdaLR`` starts at k = 0 and is stepped after
-    each update. The head's learning rate is constant.
+    weight decay — torch's Adam update is the same. The schedule's k counts
+    updates from 0, as optax's ``count`` does.
 
     Trap (gradients zero in exact math): DeltaDINO's conv biases are
     detached in training and get no update; ``tracker_head.conv2.bias``
     shifts the softmax logits by a constant, so its gradient is float noise
-    that Adam turns into steps of about ±lr, as in the JAX package.
-    Returns (optimizer, scheduler)."""
+    that Adam turns into steps of about ±lr, as in the JAX package."""
+    dev = next(model.parameters()).device
+    lr = torch.full((), cfg.lr_delta_dino, dtype=torch.float32, device=dev)
     opt = torch.optim.Adam(
-        [{"params": model.delta_dino.parameters(), "lr": cfg.lr_delta_dino},
+        [{"params": model.delta_dino.parameters(), "lr": lr},
          {"params": model.tracker_head.parameters(), "lr": cfg.lr_cnn_refiner}],
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
-    gamma, every = cfg.scheduler_gamma, cfg.apply_scheduler_every
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, [lambda k: gamma ** (k // every), lambda k: 1.0])
-    return opt, sched
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+        capturable=dev.type == "cuda")
+    return opt, LRSchedule(lr, cfg.lr_delta_dino, cfg.scheduler_gamma,
+                           cfg.apply_scheduler_every)
+
+
+def optimizer_state(opt) -> dict:
+    """``opt.state_dict()`` with each group's learning rate as a float, as
+    checkpoints held it when it was one (reads the rate back: a host
+    sync)."""
+    sd = opt.state_dict()
+    return {"state": sd["state"], "param_groups": [
+        {**g, "lr": float(g["lr"])} for g in sd["param_groups"]]}
+
+
+def load_optimizer_state(opt, saved: dict):
+    """Adam's moments and step counts from a checkpoint's ``optimizer``
+    entry. The groups' settings stay this optimizer's own: files written
+    before the schedule moved to the device hold a float rate and no
+    ``capturable``, and ``load_state_dict`` would put copies in place of the
+    rate tensor the schedule writes."""
+    lrs = [g["lr"] for g in opt.param_groups]
+    opt.load_state_dict({"state": saved["state"],
+                         "param_groups": opt.state_dict()["param_groups"]})
+    for g, lr in zip(opt.param_groups, lrs):
+        g["lr"] = lr
 
 
 def step_losses(model: tracker.Tracker, data: VideoData, sample: TrainSample,
@@ -189,9 +261,96 @@ def train_step(model: tracker.Tracker, opt, sched, data: VideoData,
 def train_state(model, opt, sched, generator, step: int) -> dict:
     """What a checkpoint holds: everything a resumed run needs to continue
     exactly."""
-    return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+    return {"model": model.state_dict(), "optimizer": optimizer_state(opt),
             "scheduler": sched.state_dict(), "generator": generator.get_state(),
             "step": step}
+
+
+def next_chunk(cfg, i: int, log_interval: int) -> int:
+    """The JAX ``Trainer._next_chunk`` (train.py:251-265): the longest run of
+    steps from iteration ``i``, at most ``cfg.steps_per_call``, that crosses
+    no phase gate, log, checkpoint or bank-rotation boundary."""
+    n = min(max(cfg.steps_per_call, 1), cfg.total_iterations - i)
+    for boundary in (cfg.apply_cyc_after, cfg.apply_cl_ref_after):
+        if i < boundary:
+            n = min(n, boundary - i)
+    for interval in (log_interval, cfg.checkpoint_interval,
+                     cfg.sampler_batch_iterations):
+        if interval > 0:
+            n = min(n, ((i // interval) + 1) * interval - i)
+    return max(n, 1)
+
+
+def _leaves(x):
+    if isinstance(x, tuple):
+        for v in x:
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def _same_data(a: VideoData, b: VideoData) -> bool:
+    return all(u is v if isinstance(u, torch.Tensor) else u == v
+               for u, v in zip(_leaves(a), _leaves(b)))
+
+
+class StepRunner:
+    """Runs the steps of a chunk and keeps their metrics' sums on the device
+    (``metrics``, in ``METRICS`` order), so the host reads nothing between
+    steps. On a CUDA device with no mesh the steps are replays of a
+    ``StepGraph``, captured anew for each variant: the phase gates and the
+    resolved ``fg_batch`` (the JAX ``Trainer._step_fn``'s key), or data
+    other than the captured tensors. The first step of a variant is the
+    capture's warm-up, a real step. Elsewhere each step runs eagerly."""
+
+    def __init__(self, model, opt, sched, generator: torch.Generator, cfg,
+                 tcfg: TrackerConfig, mesh=None):
+        self.model, self.opt, self.sched = model, opt, sched
+        self.generator, self.cfg, self.tcfg, self.mesh = generator, cfg, tcfg, mesh
+        self.metrics = torch.zeros(len(METRICS), device=generator.device)
+        self.graphed = (generator.device.type == "cuda"
+                        and not mesh_lib.is_parallel(mesh))
+        self._graph = self._variant = self._data = None
+
+    def step(self, data: VideoData, use_cyc: bool, use_cl_ref: bool):
+        m = train_step(self.model, self.opt, self.sched, data, self.generator,
+                       use_cyc, use_cl_ref, self.cfg, self.tcfg, self.mesh)
+        self.metrics.add_(torch.stack([m[k] for k in METRICS]))
+
+    def run(self, data: VideoData, use_cyc: bool, use_cl_ref: bool, n: int):
+        """Take ``n`` steps under these gates."""
+        if not self.graphed:
+            for _ in range(n):
+                self.step(data, use_cyc, use_cl_ref)
+            return
+        variant = (use_cyc, use_cl_ref,
+                   resolve_fg_batch(data.fg_bank, data.bg_bank,
+                                    self.cfg.train_batch_size,
+                                    self.cfg.fg_traj_ratio))
+        if (self._graph is None or variant != self._variant
+                or not _same_data(data, self._data)):
+            self.release()
+            self._graph = StepGraph(
+                functools.partial(self.step, data, use_cyc, use_cl_ref),
+                self.generator, self.generator.device)
+            self._variant, self._data = variant, data
+            n -= 1
+        self._graph.replay(n)
+
+    def take_metrics(self) -> dict:
+        """The metrics' sums since the last call (device scalars); resets
+        them."""
+        sums = dict(zip(METRICS, self.metrics.clone()))
+        self.metrics.zero_()
+        return sums
+
+    def release(self):
+        """Drop the graph, and the gradients that live in its memory pool:
+        the pool's memory returns once both are gone."""
+        if self._graph is not None:
+            self._graph.graph.reset()
+            self._graph = self._variant = self._data = None
+            self.opt.zero_grad(set_to_none=True)
 
 
 def steps_stage(cyc: bool, cl_ref: bool) -> str:
@@ -247,52 +406,54 @@ class Trainer:
             state, i = ckpt_lib.load_latest(self.ckpt_folder, map_location="cpu")
             if state is not None:
                 model.load_state_dict(state["model"])
-                opt.load_state_dict(state["optimizer"])
+                load_optimizer_state(opt, state["optimizer"])
                 sched.load_state_dict(state["scheduler"])
                 generator.set_state(state["generator"])
                 logger.info("resumed from iter %d", i)
         i = max(i, 0)
 
-        running, running_n = {}, 0
+        runner = StepRunner(model, opt, sched, generator, cfg, self.tcfg, self.mesh)
+        running_n = 0
         main = mesh_lib.is_main(self.mesh)
         saver = ckpt_lib.AsyncSaver()
         steps, gates = contextlib.ExitStack(), None  # the open timer of a run of steps
-        while i < cfg.total_iterations:
-            on = (i >= cfg.apply_cyc_after, i >= cfg.apply_cl_ref_after)
-            if on != gates:
-                steps.close()
-                steps.enter_context(stage_timer(steps_stage(*on), fence=self.device))
-                gates = on
-            metrics = train_step(model, opt, sched, self.data, generator, *on,
-                                 cfg, self.tcfg, self.mesh)
-            for k, v in metrics.items():
-                running[k] = running.get(k, 0.0) + v
-            running_n += 1
-            i += 1
-            log = i % log_interval == 0
-            save = i % cfg.checkpoint_interval == 0 and i < cfg.total_iterations
-            rotate = (self.bank_rotator is not None
-                      and i % cfg.sampler_batch_iterations == 0
-                      and i < cfg.total_iterations)
-            if log or save or rotate:  # host work, timed apart from the steps
-                steps.close()
-                gates = None
-            if log:
-                with stage_timer("train/log", fence=self.device):
-                    running = reduce_metrics(running, self.mesh)
-                    if main:
-                        logger.info("iter %d: %s", i, {
-                            k: float(v) / running_n for k, v in running.items()})
-                running, running_n = {}, 0
-            if save and main:
-                with stage_timer("train/checkpoint", fence=self.device):
-                    saver.save(self.ckpt_folder,
-                               train_state(model, opt, sched, generator, i), i)
-            if rotate:
-                with stage_timer("train/bank_rotation", fence=self.device):
-                    fg_bank, bg_bank = self.bank_rotator.advance()
-                    self.data = self.data._replace(fg_bank=fg_bank, bg_bank=bg_bank)
-        steps.close()
+        try:
+            while i < cfg.total_iterations:
+                n = next_chunk(cfg, i, log_interval)
+                on = (i >= cfg.apply_cyc_after, i >= cfg.apply_cl_ref_after)
+                if on != gates:
+                    steps.close()
+                    steps.enter_context(stage_timer(steps_stage(*on), fence=self.device))
+                    gates = on
+                runner.run(self.data, *on, n)
+                running_n += n
+                i += n
+                log = i % log_interval == 0
+                save = i % cfg.checkpoint_interval == 0 and i < cfg.total_iterations
+                rotate = (self.bank_rotator is not None
+                          and i % cfg.sampler_batch_iterations == 0
+                          and i < cfg.total_iterations)
+                if log or save or rotate:  # host work, timed apart from the steps
+                    steps.close()
+                    gates = None
+                if log:
+                    with stage_timer("train/log", fence=self.device):
+                        running = reduce_metrics(runner.take_metrics(), self.mesh)
+                        if main:
+                            logger.info("iter %d: %s", i, {
+                                k: float(v) / running_n for k, v in running.items()})
+                    running_n = 0
+                if save and main:
+                    with stage_timer("train/checkpoint", fence=self.device):
+                        saver.save(self.ckpt_folder,
+                                   train_state(model, opt, sched, generator, i), i)
+                if rotate:  # new windows, written into the banks' own tensors
+                    with stage_timer("train/bank_rotation", fence=self.device):
+                        fg_bank, bg_bank = self.bank_rotator.advance()
+                        self.data = self.data._replace(fg_bank=fg_bank, bg_bank=bg_bank)
+            steps.close()
+        finally:
+            runner.release()
         if main:
             with stage_timer("train/checkpoint", fence=self.device):
                 saver.join()  # every interval save landed (or its failure raises)

@@ -13,10 +13,13 @@ from typing import Sequence
 
 import torch
 
+from .constants import device_constant
+
 
 def make_range_normalizer(shapes: Sequence[float], device=None) -> torch.Tensor:
     """shapes = (W, H[, T]); returns the per-dim scale ``size - 1`` (f32)."""
-    return torch.tensor(shapes, dtype=torch.float32, device=device) - 1.0
+    return device_constant(tuple(shapes), torch.float32,
+                           torch.device(device or "cpu")) - 1.0
 
 
 def normalize_range(x: torch.Tensor, normalizer: torch.Tensor, dst=(0.0, 1.0),
@@ -24,8 +27,8 @@ def normalize_range(x: torch.Tensor, normalizer: torch.Tensor, dst=(0.0, 1.0),
     """Affine-map the ``dims`` entries of x's last axis from [0, size-1] to
     ``dst``; other entries pass through."""
     d = x.shape[-1]
-    sel = torch.zeros(d, dtype=torch.bool, device=x.device)
-    sel[list(dims)] = True
+    sel = device_constant(tuple(i in dims for i in range(d)), torch.bool,
+                          x.device)
     norm = torch.where(sel, normalizer[:d], 1.0)
     scale = torch.where(sel, (dst[1] - dst[0]) / norm, 1.0).to(x.dtype)
     off = torch.where(sel, dst[0], 0.0).to(x.dtype)
@@ -50,8 +53,8 @@ def normalize_points_for_sampling(points: torch.Tensor, h: int, w: int,
                                   stride: int = 7) -> torch.Tensor:
     """[..., 3] (x, y, t) pixel points -> feature-grid [-1, 1] x/y; t passes."""
     (aw, ah), (bw, bh) = vit_grid_affine(h, w, patch_size, stride)
-    a = torch.tensor([aw, ah, 1.0], dtype=points.dtype, device=points.device)
-    b = torch.tensor([bw, bh, 0.0], dtype=points.dtype, device=points.device)
+    a = device_constant((aw, ah, 1.0), points.dtype, points.device)
+    b = device_constant((bw, bh, 0.0), points.dtype, points.device)
     return points * a + b
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .constants import device_constant
+
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     return (coord + 1.0) * 0.5 * (size - 1)  # align_corners=True
@@ -76,8 +78,7 @@ def sample_masks_at_points(masks_phw: torch.Tensor, coords_pk2: torch.Tensor,
     f32, as the reference's ``filter_bb_foreground_pairs`` samples its fg
     mask: ``grid_sample`` with align_corners=False, zero padding, and a /size
     (not /size-1) normalisation (JAX training/losses.py:59-67)."""
-    scale = torch.tensor([resw, resh], dtype=coords_pk2.dtype,
-                         device=coords_pk2.device)
+    scale = device_constant((resw, resh), coords_pk2.dtype, coords_pk2.device)
     grid = 2.0 * (coords_pk2 / scale) - 1.0
     out = F.grid_sample(masks_phw[:, None].float(), grid[:, None].float(),
                         mode="bilinear", padding_mode="zeros",
