@@ -6,6 +6,8 @@
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
     python3 chip_smoke.py --train-only   # phases 1, 2 (K1) and 5 only
+    python3 chip_smoke.py --mesh-devices 4 --train-only   # phases 1, 2 (K1) and
+                                             # phase 12's train chunks on phase 5's data
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -147,7 +149,9 @@ Phases, one line or more each (any failure raises and exits non-zero):
      1, on copies of phase 11's video 0 (T=8 at 854x476, TrainConfig's full
      width, 40 iterations, gates at 20), both inference runs serving the
      2-rank checkpoint; checked: the checkpoints, every rank's exact K1
-     launches, trajectories within 1e-3 px and equal occlusion flags. Then
+     launches and its captures and replays (one device: 2 captures, one a
+     set of gates, and 38 replays; gloo ranks: every step eager), trajectories
+     within 1e-3 px and equal occlusion flags. Then
      both again on a copy of that folder with a truncated state_41.pt beside
      state_40.pt (a kill mid-save): checked that every rank served
      state_40.pt and that the .npy files equal those of the folder without
@@ -159,9 +163,23 @@ Phases, one line or more each (any failure raises and exits non-zero):
      scale, gradients 0.35 of max), replicas bitwise equal after 3 bf16
      steps; the refine's 265.7 MB gather and its backward's all-reduce timed.
      Printed: each rank's ms/iter with the gates off and on, the slowest
-     rank's, launches and peak memory, with the card's name and power limit.
-     With --mesh-devices N alone: N ranks, one card each, over NCCL, on the
-     directory phase 13 preprocessed with N ranks.
+     rank's, captures, replays, launches and peak memory, with the card's
+     name and power limit. With two or more cards the same again with 2
+     ranks over NCCL, one card each (one card: a line says the NCCL capture
+     did not run). Over NCCL each rank of cli.train captures its whole
+     data-parallel step (collectives included) once a set of gates and
+     replays it (2 captures, 38 replays a rank); then on every rank, from one
+     state at count 30, phase 5's comparison of 25 replays against 25 eager
+     mesh steps three times under its rule (train_chunks), the replicas'
+     parameters and BN statistics bitwise equal after the replays (a hash
+     each), K1-fwd and K1-bwd 3 each a replay in a 5-step trace, and, in
+     turns, replayed and eager ms/iter, the busy share, NCCL's share of
+     the device time and the busy share without NCCL under the profiler,
+     the capture's time and peak memory, for every rank and the slowest;
+     then, in processes of their own, a capture that fails on rank 1 alone
+     after the forward's collectives (an .item() injected there) must raise
+     on every rank before any replay, and every rank's process must end. With --mesh-devices N alone: N ranks, one card each, over NCCL,
+     on the directory phase 13 preprocessed with N ranks.
   13. multi-device preprocessing: cli.preprocess with --devices 2
      --share-device and with --devices 1 on two copies of phase 11's video
      0's frames (T=8 at 854x476, ViT-L/14 at stride 7, RAFT-large with 24
@@ -183,9 +201,10 @@ Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13) runs with every kernel's
 launch count set to 0 just before it and read just after (the ranks of
 phases 12 and 13 start from 0 in their own processes and report their
 counts). A wrapper counts the launches it makes; the replays of a captured
-train step run no wrapper, and phase 5 counts the K1 kernels they run from
-a trace of the card (phases 11 and 12 leave their replays untraced, so their
-timers are not the profiler's). Then one JSON line with the kernels (K2 and
+train step run no wrapper, and phase 5 (and phase 12's train chunks on each
+NCCL rank) counts the K1 kernels they run from a trace of the card (phases
+11 and 12 leave the CLIs' replays untraced, so their timers are not the
+profiler's). Then one JSON line with the kernels (K2 and
 K3 counted over phases 6 + 9 + 11 + 13 and 8 + 9 + 11 + 13, K1 over
 4 + 5 + 11 + 12), and last {"ok": true, "device": ...}.
 
@@ -199,6 +218,7 @@ pipeline's mask jpgs; PyYAML only through the CLIs' configs.
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -295,6 +315,14 @@ MESH_NULL_GRADS = {"tracker_head.conv2.bias"}
 MESH_PX_TOL = 1e-3
 MESH_REPLICA_STEPS = 3
 MESH_TIMED_STEPS = 5  # warm bf16 steps timed under each set of gates
+# seconds after which a rank in phase 12's train chunks prints its Python
+# stack, and every as many seconds again, until the chunks end
+MESH_STACK_DUMP_S = 180
+# --mesh-devices N --train-only: the ranks' time limit (about 2 min needed)
+MESH_CHUNKS_TIMEOUT_S = 200
+# the capture that fails on rank 1: the ranks' time limit (under a minute
+# needed); a rank still running at half of it prints its stack
+MESH_FAILURE_TIMEOUT_S = 150
 # phase 13: f16 features and r of --devices N against --devices 1, in units
 # of the features' largest magnitude and absolute
 MESH_PRE_TOL = 1e-5
@@ -312,13 +340,16 @@ def bound(flops, nbytes, peak_flops):
 
 
 def reset_counts():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the train step's captures and
+    replays, to 0."""
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.training.step_graph import StepGraph
     bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
     fa.flash_attention_cuda.launches = 0
     wg.corr_lookup_cuda.launches = 0
+    StepGraph.captures = StepGraph.replays = 0
 
 
 def fence(dev):
@@ -703,7 +734,7 @@ class StepRecorder:
 def traced(fn):
     """``fn()`` under torch.profiler tracing the card -> (wall ms, the
     traced kernels' device ms, [runs of K1-fwd, runs of K1-bwd] as the card
-    ran them, a CUDA graph's replays included)."""
+    ran them, a CUDA graph's replays included, NCCL's kernels' device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -714,44 +745,38 @@ def traced(fn):
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    return wall, busy, [sum(e.count for e in events if k in e.key) for k in K1_KERNELS]
+    nccl = sum(e.self_device_time_total for e in events if "nccl" in e.key.lower()) / 1e3
+    return (wall, busy, [sum(e.count for e in events if k in e.key) for k in K1_KERNELS],
+            nccl)
 
 
-class GraphWatch:
-    """Test-only wrappers of ``step_graph.StepGraph`` (patched in while
-    entered): count its captures and the steps replayed; with ``trace``,
-    every replay call runs under ``traced``, TRACE_STEPS replays a trace,
-    and ``ran`` sums the K1-fwd and K1-bwd kernels the card ran in replays,
-    which no wrapper counts."""
+class TracedReplays:
+    """Test-only wrapper of ``step_graph.StepGraph.replay`` (patched in
+    while entered): every replay call runs under ``traced``, TRACE_STEPS
+    replays a trace, and ``ran`` sums the K1-fwd and K1-bwd kernels the card
+    ran in replays, which no wrapper counts. (The captures and the steps
+    replayed are ``StepGraph``'s own counters, which ``reset_counts``
+    resets.)"""
 
-    def __init__(self, trace):
+    def __init__(self):
         from dino_tracker_tpu_torch.training import step_graph
-        self.cls, self.trace = step_graph.StepGraph, trace
-        self.captures = self.replays = 0
+        self.cls = step_graph.StepGraph
         self.ran = [0, 0]
 
     def __enter__(self):
-        self._init, self._replay = self.cls.__init__, self.cls.replay
+        self._replay = self.cls.replay
         watch = self
 
-        def init(graph, *args, **kwargs):
-            watch._init(graph, *args, **kwargs)
-            watch.captures += 1
-
         def replay(graph, n):
-            if watch.trace:
-                for k in range(0, n, TRACE_STEPS):
-                    ran = traced(lambda: watch._replay(graph, min(TRACE_STEPS, n - k)))[2]
-                    watch.ran = [a + b for a, b in zip(watch.ran, ran)]
-            else:
-                watch._replay(graph, n)
-            watch.replays += n
+            for k in range(0, n, TRACE_STEPS):
+                ran = traced(lambda: watch._replay(graph, min(TRACE_STEPS, n - k)))[2]
+                watch.ran = [a + b for a, b in zip(watch.ran, ran)]
 
-        self.cls.__init__, self.cls.replay = init, replay
+        self.cls.replay = replay
         return self
 
     def __exit__(self, *exc):
-        self.cls.__init__, self.cls.replay = self._init, self._replay
+        self.cls.replay = self._replay
 
 
 @contextlib.contextmanager
@@ -865,30 +890,36 @@ def from_state(state, names):
     return [state["model"][n] for n in names]
 
 
-def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
-    """The train step as the Trainer runs it on the card: a chunk of
-    CHUNK_STEPS (TrainConfig.steps_per_call) replays of one captured CUDA
-    graph (training/step_graph.py), against CHUNK_STEPS eager train_steps,
-    for each set of gates, each run from one state: CHUNK_START eager steps
-    from the Trainer's init (the schedule's count CHUNK_START, so the chunk
-    crosses apply_scheduler_every = 40), restored as a checkpoint is.
+def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
+    """The train step as the Trainer runs it on the card (or on this rank of
+    an NCCL ``mesh``): a chunk of CHUNK_STEPS (TrainConfig.steps_per_call)
+    replays of one captured CUDA graph (training/step_graph.py), against
+    CHUNK_STEPS eager train_steps, for each set of gates, each run from one
+    state: CHUNK_START eager steps from the Trainer's init (the schedule's
+    count CHUNK_START, so the chunk crosses apply_scheduler_every = 40),
+    restored as a checkpoint is.
 
-    Checked: every step's batch (frames_set_t, source and target indices)
-    and DeltaDINO learning rate of the graph equal the eager run's, the rate
-    steps down by gamma where the count reaches 40 and equals
-    lr·gamma^(count // 40), consecutive batches differ; per loss term, per
-    parameter and per BN statistic, the graph's median L2 distance to eager
-    runs A, B and C is within CHUNK_TOL_FACTOR times their largest distance
-    between two of them, plus a floor: CHUNK_CHANGE_FLOOR of the parameters'
-    and statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
+    Checked (raises where a check fails): every step's batch (frames_set_t,
+    source and target indices) and DeltaDINO learning rate of the graph
+    equal the eager run's, the rate steps down by gamma where the count
+    reaches 40 and equals lr·gamma^(count // 40), consecutive batches
+    differ; per loss term (this rank's share on a mesh), per parameter and
+    per BN statistic, the graph's median L2 distance to eager runs A, B and
+    C is within CHUNK_TOL_FACTOR times their largest distance between two of
+    them, plus a floor: CHUNK_CHANGE_FLOOR of the parameters' and
+    statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
     (``spread_rows``, ``params_summary``); no host sync under
-    torch.cuda.set_sync_debug_mode("error") over a replayed chunk; a step
-    with an .item() injected fails capture and raises. Timed in turns
-    (graph, eager, eager, graph chunks; host clock, synchronised): ms/iter
-    and peak memory of each; then TRACE_STEPS steps of each under
-    torch.profiler: the card's busy share, and the K1 kernels of the
-    replays counted."""
+    torch.cuda.set_sync_debug_mode("error") over a replayed chunk; the card
+    ran K1-fwd and K1-bwd 3 times each a replay in a trace. Measured: in
+    turns (graph, eager, eager, graph chunks; host clock, synchronised)
+    ms/iter and peak memory of each; then TRACE_STEPS steps of each under
+    torch.profiler: the card's busy share and NCCL's share of the device
+    time. -> {gates: {"rule": the verdicts' line, "lr_step", "capture_ms",
+    "peak_capture", "peak_eager_a", "times": {graphed: [ms/iter]}, "peaks":
+    {graphed: bytes}, "busy": {graphed: (ms/iter, busy, nccl share)},
+    "digest": a hash of the graph run's parameters and BN statistics}}."""
     import copy
+    import hashlib
     from dino_tracker_tpu_torch.training import train
     every, gamma = cfg.apply_scheduler_every, cfg.scheduler_gamma
 
@@ -902,7 +933,7 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
             train.load_optimizer_state(opt, state["optimizer"])
             sched.load_state_dict(state["scheduler"])
             gen.set_state(state["generator"])
-        return model, train.StepRunner(model, opt, sched, gen, cfg, tcfg)
+        return model, train.StepRunner(model, opt, sched, gen, cfg, tcfg, mesh)
 
     def chunk(runner, gates, graphed, n=CHUNK_STEPS):
         t0 = time.perf_counter()
@@ -914,8 +945,16 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
+    def note(what):  # on a mesh, where each rank got to (a hang names its place)
+        if mesh is not None:
+            print(f"[rank {mesh.rank}] train chunks, gates {gates}: {what}", flush=True)
+
+    if mesh is not None:  # a rank that hangs prints its Python stack
+        faulthandler.dump_traceback_later(MESH_STACK_DUMP_S, repeat=True)
+    results = {}
     for gates in (False, True):
         model, runner = fresh(None)
+        check(runner.graphed, f"the step on {dev} is not captured: {runner.eager_because}")
         for _ in range(CHUNK_START):
             runner.step(data, gates, gates)
         start = copy.deepcopy(train.train_state(model, runner.opt, runner.sched,
@@ -934,6 +973,7 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
                     ms = chunk(runner, gates, False)
             runs[name] = (rec, *model_state(model)[1::2], ms,
                           torch.cuda.max_memory_allocated(), int(runner.sched.count))
+            note(f"{name} done")
             if name in ("graph", "eager C"):
                 kept[name] = runner
             del model, runner
@@ -962,19 +1002,14 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
                                    from_state(start, p_names), CHUNK_STEPS,
                                    cfg.lr_cnn_refiner),
                     spread_summary("BN statistics' change", bn_rows)]
-        print(f"train chunks, gates {'on' if gates else 'off'}: {CHUNK_STEPS} replays vs "
-              f"{CHUNK_STEPS} eager steps from one state at count {CHUNK_START}: batches "
-              f"and learning rates equal (the rate x{lrs[cross] / lrs[cross - 1]:.6f} at "
-              f"count {every}), consecutive batches differ; each tensor's median L2 distance "
-              f"to eager A, B, C against {CHUNK_TOL_FACTOR:g}x their spread + "
-              f"{CHUNK_LOSS_FLOOR:g} of a loss term, {CHUNK_CHANGE_FLOOR:g} of a change: "
-              + "; ".join(v[1] for v in verdicts)
-              + f"; the warm-up step and the capture {g[3]:.1f} ms, peak allocated "
-              f"{g[4] / 2**30:.2f} GiB (eager A {a[4] / 2**30:.2f})", flush=True)
         check(all(v[0] for v in verdicts),
               f"gates {gates}: the graph disagrees with the eager steps: "
               + "; ".join(v[1] for v in verdicts if not v[0]))
+        digest = hashlib.sha256()
+        for x in g[1] + g[2]:
+            digest.update(x.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
 
+        note(f"compared: {'; '.join(v[1] for v in verdicts)}")
         graph, eager = kept["graph"], kept["eager C"]
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -987,18 +1022,51 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
             torch.cuda.reset_peak_memory_stats()
             times[graphed].append(chunk(graph if graphed else eager, gates, graphed))
             peaks[graphed] = max(peaks[graphed], torch.cuda.max_memory_allocated())
-        busy = {}
+        note(f"in turns: replayed {times[True]}, eager {times[False]} ms/iter, peak "
+             f"{peaks[True]} / {peaks[False]} B, capture {g[3]:.1f} ms")
+        results[gates] = dict(
+            rule=("; ".join(v[1] for v in verdicts)), lr_step=lrs[cross] / lrs[cross - 1],
+            capture_ms=g[3], peak_capture=g[4], peak_eager_a=a[4], times=times,
+            peaks=peaks, digest=digest.hexdigest(),
+            # the graph writes into its recorder's buffers: they live as long
+            runners=(graph, eager, runs["graph"][0]))
+        del kept, runs
+    for gates, r in results.items():  # traces last: every number above is kept
+        graph, eager, _ = r.pop("runners")
+        r["busy"] = {}
         for graphed in (True, False):
-            wall, device_ms, ran = traced(
+            wall, device_ms, ran, nccl_ms = traced(
                 lambda: chunk(graph if graphed else eager, gates, graphed, TRACE_STEPS))
-            busy[graphed] = (wall / TRACE_STEPS, device_ms / wall)
+            r["busy"][graphed] = (wall / TRACE_STEPS, device_ms / wall, nccl_ms / device_ms)
             if graphed:
                 check(ran == [3 * TRACE_STEPS] * 2, f"gates {gates}: the card ran K1-fwd / "
                       f"K1-bwd {ran} times in {TRACE_STEPS} replays")
+        note(f"traced: {r['busy']}")
         graph.release()
         eager.release()
-        del graph, eager, kept
-        print(f"train chunks, gates {'on' if gates else 'off'}: a replayed chunk under "
+        del graph, eager
+    if mesh is not None:
+        faulthandler.cancel_dump_traceback_later()
+    return results
+
+
+def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
+    """``train_chunks`` on the one card, printed; then a step with an
+    .item() injected must fail capture and raise, naming the line."""
+    from dino_tracker_tpu_torch.training import train
+    for gates, r in train_chunks(dev, trainer, cfg, tcfg, data).items():
+        on = "on" if gates else "off"
+        print(f"train chunks, gates {on}: {CHUNK_STEPS} replays vs "
+              f"{CHUNK_STEPS} eager steps from one state at count {CHUNK_START}: batches "
+              f"and learning rates equal (the rate x{r['lr_step']:.6f} at count "
+              f"{cfg.apply_scheduler_every}), consecutive batches differ; each tensor's "
+              f"median L2 distance to eager A, B, C against {CHUNK_TOL_FACTOR:g}x their "
+              f"spread + {CHUNK_LOSS_FLOOR:g} of a loss term, {CHUNK_CHANGE_FLOOR:g} of a "
+              f"change: {r['rule']}; the warm-up step and the capture {r['capture_ms']:.1f} "
+              f"ms, peak allocated {r['peak_capture'] / 2**30:.2f} GiB (eager A "
+              f"{r['peak_eager_a'] / 2**30:.2f})", flush=True)
+        times, peaks, busy = r["times"], r["peaks"], r["busy"]
+        print(f"train chunks, gates {on}: a replayed chunk under "
               f"set_sync_debug_mode('error'): no sync; in turns (graph, eager, eager, graph; "
               f"{CHUNK_STEPS} steps each): graphed {', '.join(f'{t:.2f}' for t in times[True])} "
               f"ms/iter, eager {', '.join(f'{t:.2f}' for t in times[False])} ms/iter; peak "
@@ -1006,11 +1074,14 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
               f"reserved at capture, not counted), eager {peaks[False] / 2**30:.2f} GiB; "
               f"under torch.profiler ({TRACE_STEPS} steps): graphed {busy[True][0]:.2f} "
               f"ms/iter, the card busy {busy[True][1]:.4f} of it (K1-fwd and K1-bwd ran "
-              f"{3 * TRACE_STEPS} times each in the replays), eager {busy[False][0]:.2f} ms/iter, busy "
-              f"{busy[False][1]:.4f} [{smi}]", flush=True)
+              f"{3 * TRACE_STEPS} times each in the replays), eager {busy[False][0]:.2f} "
+              f"ms/iter, busy {busy[False][1]:.4f} [{smi}]", flush=True)
 
     # a step that syncs: the capture raises and names the line
-    model, runner = fresh(None)
+    model = trainer.init_model().train()
+    opt, sched = train.make_optimizer(model, cfg)
+    runner = train.StepRunner(model, opt, sched,
+                              torch.Generator(device=dev).manual_seed(2), cfg, tcfg)
     losses = train.step_losses
 
     def syncing(*args, **kwargs):
@@ -1097,6 +1168,7 @@ def phase_train(bp, dev, video, dino, smi):
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from dino_tracker_tpu_torch.training import checkpoint, train
+    from dino_tracker_tpu_torch.training.step_graph import StepGraph
     cfg = TrainConfig()  # the reference's config/train.yaml defaults
     tcfg = TrackerConfig(video_h=H, video_w=W, delta_channels=CHANNELS,
                          compute_dtype=cfg.compute_dtype)
@@ -1137,18 +1209,19 @@ def phase_train(bp, dev, video, dino, smi):
     syncs = [count_syncs(lambda: train.train_step(model, opt, sched, data, gen, g, g, cfg,
                                                    tcfg)) for g in (False, True)]
     t0 = time.perf_counter()
-    with GraphWatch(trace=True) as watch:
+    with TracedReplays() as watch:
         train.Trainer(long, tcfg, data, ckpt_folder, seed=2, device=dev).train(
             log_interval=TRAINER_LOG)
     trainer_s = time.perf_counter() - t0
+    captures, replays = StepGraph.captures, StepGraph.replays
     calls = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
     launches = (calls[0] + watch.ran[0], calls[1] + watch.ran[1])
-    eager_steps = len(history) + 2 + watch.captures
-    check(calls == (3 * eager_steps,) * 2 and watch.ran == [3 * watch.replays] * 2
-          and watch.captures == 2 and watch.captures + watch.replays == TRAINER_ITERATIONS,
+    eager_steps = len(history) + 2 + captures
+    check(calls == (3 * eager_steps,) * 2 and watch.ran == [3 * replays] * 2
+          and captures == 2 and captures + replays == TRAINER_ITERATIONS,
           f"K1-fwd / K1-bwd: the wrappers launched {calls} times in {eager_steps} eager "
-          f"steps, the card ran {watch.ran} in {watch.replays} replays of "
-          f"{watch.captures} captures; expected 3 a step, 2 captures (one a set of gates) "
+          f"steps, the card ran {watch.ran} in {replays} replays of "
+          f"{captures} captures; expected 3 a step, 2 captures (one a set of gates) "
           f"and {TRAINER_ITERATIONS} steps of the Trainer")
     values = torch.stack([torch.stack(list(m.values())) for m in history])
     check(bool(values.isfinite().all()), "a non-finite loss term")
@@ -1172,7 +1245,7 @@ def phase_train(bp, dev, video, dino, smi):
           f"syncs in a train_step with the gates off / on: {len(syncs[0])} / "
           f"{len(syncs[1])}; the Trainer {TRAINER_ITERATIONS} iterations in chunks (gates "
           f"at {TRAINER_GATES}, checkpoints {steps_saved}, replays traced) {trainer_s:.2f} s: "
-          f"{watch.captures} captures, {watch.replays} replays; K1-fwd/K1-bwd launches "
+          f"{captures} captures, {replays} replays; K1-fwd/K1-bwd launches "
           f"{launches} (wrappers {calls}, traced in replays {tuple(watch.ran)})", flush=True)
     check(syncs == [[], []], f"the train step makes host syncs (gates off / on): {syncs}")
     print(f"train: losses, gates off: {fmt(m_off)}", flush=True)
@@ -2280,6 +2353,7 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.training.step_graph import StepGraph
     from dino_tracker_tpu_torch.utils import profiling
     pcfg, tcfg = PreprocessConfig(max_frames=t), TrainConfig()
     h, w = pcfg.video_resh, pcfg.video_resw
@@ -2298,9 +2372,9 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
 
     reset_counts()
     t0 = time.perf_counter()
-    with GraphWatch(trace=False) as watch:  # untraced, so the stage timers are too
-        launcher = run_benchmark.main(args + ["--claim-dir", claims])
+    launcher = run_benchmark.main(args + ["--claim-dir", claims])  # replays untraced
     run_s = time.perf_counter() - t0
+    captures, replays = StepGraph.captures, StepGraph.replays
     launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
                 fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
     profiling.reset_stage_timers()
@@ -2315,13 +2389,13 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     # K1 in the refine (3 launches a 16-frame chunk) and in the train steps
     # the wrappers launch: each capture's warm-up step; the replays' are not
     # traced here (phase 5 traces them)
-    expected = (n * 3 * -(-t // 16) + 3 * watch.captures, 3 * watch.captures,
+    expected = (n * 3 * -(-t // 16) + 3 * captures, 3 * captures,
                 n * (max(pcfg.dino_layer, pcfg.mask_dino_layer) + 1)
                 * -(-t // pcfg.extract_frames_per_batch),
                 n * pcfg.raft_iters * decode_batches(t))
-    check(launches == expected and watch.captures + watch.replays == n * iterations,
+    check(launches == expected and captures + replays == n * iterations,
           f"K1-fwd / K1-bwd / K2 / K3 launched {launches} times in the whole system, "
-          f"expected {expected}; {watch.captures} captured and {watch.replays} replayed "
+          f"expected {expected}; {captures} captured and {replays} replayed "
           f"train steps, expected {n * iterations}")
     for vid in ids:
         check(os.path.exists(os.path.join(claims, f"{vid}.done")), f"video {vid} not done")
@@ -2390,8 +2464,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
           f"{mib(cleared - base)}, bound {E2E_MEMORY_MARGIN / 2**20:.0f}); live CUDA "
           f"tensors (count, bytes) {live_cuda_tensors()}; "
           f"launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 {launches[2]}, "
-          f"K3 {launches[3]}; train steps {watch.captures} captured (each a warm-up step), "
-          f"{watch.replays} replayed; TrainConfig batch {tcfg.train_batch_size} x "
+          f"K3 {launches[3]}; train steps {captures} captured (each a warm-up step), "
+          f"{replays} replayed; TrainConfig batch {tcfg.train_batch_size} x "
           f"{tcfg.batch_n_frames} frames, {tcfg.compute_dtype}", flush=True)
     return launches
 
@@ -2554,12 +2628,101 @@ def mesh_equality(mesh, data_path, train_yaml, device_type="cuda"):
         out["gather_ms"] = timed(lambda: mesh_lib.all_gather_rows(x, mesh, n))
         out["all_reduce_ms"] = timed(lambda: dist.all_reduce(full, group=mesh.group))
         out["gather_bytes"] = full.numel() * full.element_size()
+        del x, full
+    if mesh is not None and mesh_lib.capture_blocker(mesh) is None:
+        trainer = train.Trainer(cfg, rt.tcfg, data, "", seed=2, device=dev, mesh=mesh)
+        out["chunks"] = train_chunks(dev, trainer, cfg, rt.tcfg, data, mesh)
     return out
 
 
+def phase5_trainer(mesh):
+    """A rank's Trainer on phase 5's data (made on the card from a seed) at
+    TrainConfig's full width -> (trainer, cfg, tcfg, data)."""
+    from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+    from dino_tracker_tpu_torch.training import train
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig()
+    tcfg = TrackerConfig(video_h=H, video_w=W, delta_channels=CHANNELS,
+                         compute_dtype=cfg.compute_dtype)
+    video, dino = make_inputs(T, H, W, CHANNELS[-1], tcfg.feat_hw, dev, 1)
+    data = make_train_data(video, dino, dev, 5)
+    trainer = train.Trainer(cfg, tcfg, data, "", seed=2, device=dev, mesh=mesh)
+    return trainer, cfg, tcfg, data
+
+
+def capture_failure_on_rank_1(mesh, data_path=None, train_yaml=None):
+    """``sync_on_rank_1`` on a preprocessed directory's data, or with no
+    directory on phase 5's."""
+    if data_path is None:
+        return sync_on_rank_1(mesh, *phase5_trainer(mesh))
+    from dino_tracker_tpu_torch import runtime
+    from dino_tracker_tpu_torch.config import TrainConfig
+    from dino_tracker_tpu_torch.training import train
+    cfg = TrainConfig.from_yaml(train_yaml)
+    rt = runtime.DINOTrackerRuntime(data_path, cfg, mesh.device, mesh=mesh)
+    data, tcfg = rt.load_video_data(), rt.tcfg
+    trainer = train.Trainer(cfg, tcfg, data, "", seed=2, device=mesh.device, mesh=mesh)
+    return sync_on_rank_1(mesh, trainer, cfg, tcfg, data)
+
+
+def mesh_train_chunks(mesh):
+    """``--mesh-devices N --train-only`` on each rank: phase 12's train
+    chunks (``train_chunks``) on phase 5's data at full width."""
+    trainer, cfg, tcfg, data = phase5_trainer(mesh)
+    return {"chunks": train_chunks(mesh.device, trainer, cfg, tcfg, data, mesh)}
+
+
+def report_capture_failure(raised):
+    """Checks and prints each rank's ``sync_on_rank_1`` message."""
+    check(all(e is not None and "rank 1:" in e and ".item()" in e for e in raised),
+          f"a capture failed on rank 1 alone; the ranks raised {raised}")
+    print(f"mesh: a step that syncs on rank 1 alone after the forward's collectives (an "
+          f".item() injected) failed its capture there, after the other ranks had "
+          f"captured the whole step, and raised on all {len(raised)} ranks before any "
+          f"replay; every rank's process then ended: {raised[0][:300]}", flush=True)
+
+
+def sync_on_rank_1(mesh, trainer, cfg, tcfg, data):
+    """A step that syncs on rank 1 alone (an .item() injected there after
+    the forward, so after the refine's gather, BN's all-reduces and the
+    cycle gathers were captured), whose capture therefore fails there part
+    way while the other ranks capture the whole step: every rank must raise
+    before any replay, naming rank 1 and the line. Nothing after it uses
+    the NCCL communicator (a host barrier), and the spawn's time limit
+    holds the processes' end. -> this rank's error message."""
+    import torch.distributed as dist
+    from dino_tracker_tpu_torch.training import train
+    model = trainer.init_model().train()
+    opt, sched = train.make_optimizer(model, cfg)
+    runner = train.StepRunner(model, opt, sched,
+                              torch.Generator(device=mesh.device).manual_seed(2), cfg,
+                              tcfg, mesh)
+    losses = train.step_losses
+
+    def syncing(*args, **kwargs):
+        out = losses(*args, **kwargs)
+        if mesh.rank == 1:
+            torch.zeros((), device=mesh.device).item()  # after the forward's collectives
+        return out
+
+    faulthandler.dump_traceback_later(MESH_FAILURE_TIMEOUT_S // 2, repeat=True)
+    train.step_losses = syncing
+    try:
+        runner.run(data, False, False, 2)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        train.step_losses = losses
+    dist.barrier(group=mesh.host_group)
+    torch.cuda.synchronize(mesh.device)
+    return raised  # the stack dumps stay armed until the process ends
+
+
 def rank_line(reports, gates_at, iterations):
-    """ms/iter with the gates off and on, launches and peak memory of each
-    rank's report."""
+    """ms/iter with the gates off and on, captures and replays, launches and
+    peak memory of each rank's report."""
     parts = []
     for r, rep in enumerate(reports):
         st = rep["stages"]
@@ -2569,7 +2732,8 @@ def rank_line(reports, gates_at, iterations):
                    if "train/steps_gates_off/slowest_rank" in st else "")
         parts.append(f"rank {r}: {ms('train/steps_gates_off', gates_at):.2f} / "
                      f"{ms('train/steps_gates_on', iterations - gates_at):.2f} ms/iter "
-                     f"gates off / on{slowest}, launches {rep['launches']}, peak "
+                     f"gates off / on{slowest}, captures {rep['graphs']['captures']}, "
+                     f"replays {rep['graphs']['replays']}, launches {rep['launches']}, peak "
                      f"{rep.get('peak_bytes', 0) / 2**30:.2f} GiB")
     return "; ".join(parts)
 
@@ -2613,10 +2777,9 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
         return reports, time.perf_counter() - t0
 
     train_args = lambda d: ["--config", train_yaml, "--data-path", d, "--device", dev.type]
-    trained = {}
-    for w in (n_ranks, 1):  # one device trains in chunks of replays, ranks eagerly
-        with GraphWatch(trace=False) as watch:
-            trained[w] = run(train_cli, train_args(dirs[w]), w) + (watch,)
+    # one device, and ranks over NCCL, train in chunks of replays; ranks over
+    # gloo (a shared card) eagerly
+    trained = {w: run(train_cli, train_args(dirs[w]), w) for w in (n_ranks, 1)}
     for w, d in dirs.items():
         steps = checkpoint.checkpoint_steps(os.path.join(d, "models", "dino_tracker"))
         check(steps == [iterations, gates_at], f"--devices {w} wrote checkpoints {steps}")
@@ -2673,23 +2836,28 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
 
     # launches: each rank's DeltaDINO runs 3 blurpools an eager train step
     # (its share of the frame set) and 3 a 16-frame refine chunk of its
-    # frames; one device steps eagerly only to warm up each capture
+    # frames; a captured step's wrapper calls count only in its warm-up step,
+    # one a capture (the replays run no wrapper): 2 captures, one a set of
+    # gates, and the other steps replayed, on one device and on each NCCL rank
     refine = lambda w: [3 * -(-s // 16) for s in mesh_lib.split_sizes(t, w)]
     for w in (n_ranks, 1):
-        got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["blurpool_up_nhwc"])
-               for r in trained[w][0]]
-        watch = trained[w][2]
-        eager = iterations if w > 1 else watch.captures
-        check(got == [(3 * eager, 3 * eager)] * w and (
-            w > 1 or watch.captures + watch.replays == iterations),
-              f"--devices {w} training launched K1-fwd / K1-bwd {got} times per rank, "
-              f"expected {3 * eager} ({watch.captures} captured, {watch.replays} replayed "
-              f"steps in this process)")
+        graphed = w == 1 or not share
+        captures = 2 if graphed else 0
+        got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["blurpool_up_nhwc"],
+                r["graphs"]["captures"], r["graphs"]["replays"]) for r in trained[w][0]]
+        eager = captures if graphed else iterations
+        want = (3 * eager, 3 * eager, captures, iterations - eager)
+        check(got == [want] * w, f"--devices {w} training launched K1-fwd / K1-bwd and "
+              f"made captures / replays {got} per rank, expected {want}")
         for what, runs in (("inference", served), ("inference past the truncated file",
                                                    fallback)):
             got = [r["launches"]["blurpool_down_nhwc"] for r in runs[w][0]]
             check(got == refine(w), f"--devices {w} {what} launched K1-fwd {got} "
                   f"times per rank, expected {refine(w)}")
+    if share:
+        print(f"mesh: cli.train --devices {n_ranks} --share-device: every rank stepped "
+              f"eagerly (0 captures, 3 K1-fwd and K1-bwd a step; gloo collectives go "
+              f"through host memory)", flush=True)
     launches = [0, 0]
     for w in (n_ranks, 1):
         for r in trained[w][0] + served[w][0] + fallback[w][0]:
@@ -2719,7 +2887,8 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
     # run-to-run spread: the row gathers' backward accumulates with atomics)
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn(mesh_equality, n_ranks, dev.type,
-                           args=(dirs[1], train_yaml), share_device=share, timeout=900)
+                           args=(dirs[1], train_yaml), share_device=share,
+                           timeout=900)
     eq_s = time.perf_counter() - t0
     one = [mesh_equality(None, dirs[1], train_yaml, dev.type) for _ in range(2)]
     if cuda:
@@ -2781,7 +2950,54 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
           f"{[round(r['gather_ms'], 2) for r in ranks]} ms, its backward's all-reduce "
           f"{[round(r['all_reduce_ms'], 2) for r in ranks]} ms [{smi}]", flush=True)
     check(met and same, "the multi-rank train step disagrees with one device")
+    if not share:
+        mesh_chunks_report(ranks, how, smi)
+        report_capture_failure(mesh_lib.spawn(capture_failure_on_rank_1, n_ranks,
+                                              dev.type, args=(dirs[1], train_yaml),
+                                              timeout=MESH_FAILURE_TIMEOUT_S))
     return launches
+
+
+def mesh_chunks_report(ranks, how, smi):
+    """Each rank's ``train_chunks`` (run by ``mesh_equality``): checked that
+    every rank's graph run left bitwise the same parameters and BN
+    statistics; printed, in turns, for every rank and the slowest (the
+    largest time, the least busy share), gates off and on."""
+    for gates in (False, True):
+        rows = [r["chunks"][gates] for r in ranks]
+        check(len({r["digest"] for r in rows}) == 1, f"gates {gates}: the ranks' "
+              f"replicas differ after the replays: {[r['digest'][:12] for r in rows]}")
+        fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)
+        # NCCL's kernels spin while they wait for a slower peer: the card's
+        # own work is the busy share less NCCL's part of it
+        own = lambda b: b[1] * (1 - b[2])
+        lines = [f"rank {k}: replayed {fmt(r['times'][True])}, eager "
+                 f"{fmt(r['times'][False])} ms/iter, under the profiler replayed "
+                 f"{r['busy'][True][0]:.2f} (busy {r['busy'][True][1]:.4f}, NCCL "
+                 f"{r['busy'][True][2]:.4f} of the device time, busy without NCCL "
+                 f"{own(r['busy'][True]):.4f}), eager "
+                 f"{r['busy'][False][0]:.2f} (busy {r['busy'][False][1]:.4f}, NCCL "
+                 f"{r['busy'][False][2]:.4f}, busy without NCCL "
+                 f"{own(r['busy'][False]):.4f}), warm-up step and capture "
+                 f"{r['capture_ms']:.1f} ms, peak allocated replaying "
+                 f"{r['peaks'][True] / 2**30:.2f} GiB, eager {r['peaks'][False] / 2**30:.2f}"
+                 f" GiB" for k, r in enumerate(rows)]
+        slow = lambda f: max(f(r) for r in rows)
+        lines.append(
+            f"slowest rank: replayed {slow(lambda r: np.mean(r['times'][True])):.2f}, "
+            f"eager {slow(lambda r: np.mean(r['times'][False])):.2f} ms/iter (means in "
+            f"turns), busy replayed {min(r['busy'][True][1] for r in rows):.4f}, eager "
+            f"{min(r['busy'][False][1] for r in rows):.4f}, without NCCL replayed "
+            f"{min(own(r['busy'][True]) for r in rows):.4f}, eager "
+            f"{min(own(r['busy'][False]) for r in rows):.4f}, capture "
+            f"{slow(lambda r: r['capture_ms']):.1f} ms")
+        print(f"mesh: train chunks, {how}, gates {'on' if gates else 'off'}: on every rank "
+              f"{CHUNK_STEPS} replays vs {CHUNK_STEPS} eager steps from one state at count "
+              f"{CHUNK_START}, batches and rates equal, every tensor within phase 5's rule "
+              f"(rank 0: {rows[0]['rule']}); the replicas bitwise equal after the replays; "
+              f"K1-fwd and K1-bwd {3 * TRACE_STEPS} each in {TRACE_STEPS} traced replays on "
+              f"every rank; in turns (graph, eager, eager, graph; {CHUNK_STEPS} steps each): "
+              + "; ".join(lines) + f" [{smi}]", flush=True)
 
 
 def compare_preprocessed(got_dir, want_dir):
@@ -2965,7 +3181,9 @@ def main():
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--train-only", action="store_true",
-                    help="run only the K1 build and the training slice (phase 5)")
+                    help="run only the K1 build and the training slice (phase 5); with "
+                         "--mesh-devices N, phase 12's train chunks on N ranks on "
+                         "phase 5's data")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run only the kernel builds, the launches on cuda:1 and "
                          "phases 13 and 12 with this many ranks, one card each over "
@@ -3027,6 +3245,16 @@ def main():
         phase_mesh_preprocess(dev, os.path.join(root, "video"),
                               ["--config", write_preprocess_yaml(root, cfg), "--raft-checkpoint",
                                raft_path, "--dino-checkpoint", vit_path], n, False, smis, t)
+        print_ok()
+        return
+    if args.mesh_devices and args.train_only:  # phase 12's train chunks alone
+        from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+        build_kernels([("blurpool.cu", bp)])
+        ranks = mesh_lib.spawn(mesh_train_chunks, n, "cuda", timeout=MESH_CHUNKS_TIMEOUT_S)
+        mesh_chunks_report(ranks, f"{n} ranks on cuda:0..{n - 1} over NCCL, phase 5's data",
+                           smis)
+        report_capture_failure(mesh_lib.spawn(capture_failure_on_rank_1, n, "cuda",
+                                              timeout=MESH_FAILURE_TIMEOUT_S))
         print_ok()
         return
     if args.train_only:  # the training slice alone, on phase 4's inputs
@@ -3092,9 +3320,16 @@ def main():
               "cuda:1 from cuda:0 need two (python3 chip_smoke.py --mesh-devices N)",
               flush=True)
     e2e_root = os.path.join(WORK_DIR, "e2e")
-    mesh = phase_mesh(dev, os.path.join(e2e_root, "videos", "0"),
-                      os.path.join(e2e_root, "train.yaml"),
-                      os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS, True, smi)
+    mesh_args = (os.path.join(e2e_root, "videos", "0"), os.path.join(e2e_root, "train.yaml"),
+                 os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS)
+    mesh = phase_mesh(dev, *mesh_args, True, smi)
+    if torch.cuda.device_count() >= MESH_RANKS:  # the captured mesh step, one card a rank
+        mesh = [a + b for a, b in zip(mesh, phase_mesh(
+            dev, *mesh_args, False, " | ".join(smi_lines[:MESH_RANKS])))]
+    else:
+        print(f"mesh: the NCCL capture did not run: one CUDA device is visible, and "
+              f"{MESH_RANKS} ranks over NCCL need one each (python3 chip_smoke.py "
+              f"--mesh-devices N on N cards)", flush=True)
     _, mesh_pre = phase_mesh_preprocess(
         dev, os.path.join(e2e_root, "videos", "0", "video"),
         ["--config", os.path.join(e2e_root, "preprocessing.yaml"), "--raft-checkpoint",

@@ -24,6 +24,12 @@ path makes, at its shape; ``gather_batches`` puts the outputs back together
 in batch order on every rank, whatever their dtype. ``broadcast_object``
 hands rank 0's decision (a small host value) to every rank.
 
+The train step's collectives are capture-safe: over NCCL each rank captures
+its whole step, collectives included, into a CUDA graph
+(``training/step_graph.py``); ``capture_blocker`` says where that cannot be
+(gloo), and ``agree`` gathers the ranks' capture outcomes over host memory
+so that one rank's failure raises on all.
+
 ``spawn`` starts the ranks and returns what each one returned. A world of
 size 1 (``mesh=None`` everywhere) is the single-device path and needs no
 process group. ``spawn(..., share_device=True)`` puts every rank on one card
@@ -52,11 +58,14 @@ from ..utils import profiling
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in the world: its rank, the world size, the
-    device it computes on, and the process group of the collectives."""
+    device it computes on, the process group of the collectives, and a
+    group over host memory (gloo) for the votes ``agree`` takes (None: the
+    collectives' group, which is gloo itself)."""
     rank: int
     world_size: int
     device: torch.device
     group: Any = None
+    host_group: Any = None
 
 
 def world_size(mesh: Optional[Mesh]) -> int:
@@ -171,6 +180,48 @@ def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int,
     return y.movedim(0, dim)
 
 
+def capture_blocker(mesh: Optional[Mesh]) -> Optional[str]:
+    """None where the train step's collectives can be captured into a CUDA
+    graph (``training/step_graph.py``): no mesh, or NCCL, which puts one card
+    under each rank (it refuses two ranks on one card) and whose collectives
+    are kernels on the ranks' streams. Else why not: gloo stages a CUDA
+    collective through host memory and waits for it on the host, which no
+    graph can hold (the CPU, ``share_device``). Decided from the backend,
+    before any step runs."""
+    if not is_parallel(mesh):
+        return None
+    backend = dist.get_backend(mesh.group)
+    if backend != "nccl":
+        return (f"{backend} collectives go through host memory and cannot be "
+                f"captured into a CUDA graph")
+    return None
+
+
+def agree(error: Optional[str], summary: Any, mesh: Optional[Mesh], what: str):
+    """Raise on every rank unless every rank did ``what`` alike: each rank's
+    outcome (``error``, None where it succeeded) and ``summary`` (a small
+    host value that must be equal on every rank) are gathered eagerly, so a
+    rank that failed makes every rank raise instead of leaving its peers
+    blocked in a collective it will never join. The vote goes over
+    ``mesh.host_group`` (gloo), never through the NCCL communicator, which
+    a capture that failed part-way may have left holding work its peers do
+    not. On one device: raise if ``error``."""
+    if not is_parallel(mesh):
+        if error is not None:
+            raise RuntimeError(f"{what}: {error}")
+        return
+    every = [None] * mesh.world_size
+    host = mesh.host_group if mesh.host_group is not None else mesh.group
+    dist.all_gather_object(every, (error, summary), group=host)
+    failed = [f"rank {r}: {e}" for r, (e, _) in enumerate(every) if e is not None]
+    if failed:
+        raise RuntimeError(f"{what} failed on {len(failed)} of {mesh.world_size} "
+                           f"ranks; " + "; ".join(failed))
+    if any(s != every[0][1] for _, s in every):
+        raise RuntimeError(f"{what} differs between ranks: "
+                           + "; ".join(f"rank {r}: {s}" for r, (_, s) in enumerate(every)))
+
+
 def broadcast_object(value: Any, mesh: Optional[Mesh], src: int = 0) -> Any:
     """Rank ``src``'s ``value`` (a small picklable host value) on every rank;
     ``value`` itself on one device. For a decision every rank must take
@@ -234,10 +285,18 @@ def gather_batches(outputs: Sequence[Sequence[torch.Tensor]], rows: Sequence[int
     return out
 
 
+def grad_set(model: torch.nn.Module) -> tuple:
+    """The indices of the parameters that hold a gradient: the bucket
+    ``all_reduce_grads`` sums."""
+    return tuple(i for i, p in enumerate(model.parameters()) if p.grad is not None)
+
+
 def all_reduce_grads(model: torch.nn.Module, mesh: Optional[Mesh]):
     """Sum every parameter's gradient over ranks in one flat bucket (the
     psum XLA inserts for replicated parameters). Every rank must hold
-    gradients for the same parameters."""
+    gradients for the same parameters (``grad_set``): a captured step
+    checks it across ranks and against its warm-up step
+    (``training/step_graph.py``)."""
     if not is_parallel(mesh):
         return
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -302,8 +361,10 @@ def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     store = dist.FileStore(os.path.join(workdir, "store"), n)
     dist.init_process_group(backend, store=store, rank=rank, world_size=n)
+    # agree's votes stay off NCCL
+    host = dist.new_group(backend="gloo") if backend == "nccl" else None
     try:
-        out = fn(Mesh(rank, n, device, dist.group.WORLD), *args)
+        out = fn(Mesh(rank, n, device, dist.group.WORLD, host), *args)
         torch.save(out, os.path.join(workdir, f"result_{rank}.pt"))
     except BaseException:
         # a rank that fails closes its connections, and its peers then fail

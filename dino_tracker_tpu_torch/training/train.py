@@ -15,12 +15,14 @@ state (``LRSchedule``) and the constants it needs are made once.
 The loop runs the JAX trainer's chunks: ``next_chunk`` gives the longest run
 of at most ``cfg.steps_per_call`` steps that crosses no phase gate, log,
 checkpoint or bank rotation, and within it the host does no work between
-steps and reads nothing back (``StepRunner``). On a CUDA device with no mesh
-a chunk is n replays of one captured CUDA graph of the whole step
+steps and reads nothing back (``StepRunner``). On a CUDA device, with no
+mesh or on each rank of an NCCL mesh, a chunk is n replays of one captured
+CUDA graph of the whole step, collectives included
 (``step_graph.StepGraph``), captured once per variant as the JAX
 ``Trainer._step_fn`` compiles one program per phase and ``fg_batch``; on the
-CPU and on a mesh (gloo's collectives cannot be captured) it is the eager
-step n times.
+CPU and over gloo (whose collectives cannot be captured) it is the eager
+step n times. The metrics' all-reduce, the log, rank 0's saves, the bank
+rotation and the ranks' closing timers and barrier run between chunks.
 
 Parallelism (``mesh``, ``parallel/mesh.py``): every rank holds the same
 parameters and the same generator, so every rank draws the single-device
@@ -294,22 +296,39 @@ def _same_data(a: VideoData, b: VideoData) -> bool:
                for u, v in zip(_leaves(a), _leaves(b)))
 
 
+def eager_because(device: torch.device, mesh=None) -> Optional[str]:
+    """None where the train step on ``device`` (and ``mesh``) is captured
+    into a CUDA graph and replayed; else why it runs eagerly."""
+    if device.type != "cuda":
+        return f"{device.type} tensors: CUDA graphs hold only CUDA work"
+    return mesh_lib.capture_blocker(mesh)
+
+
 class StepRunner:
     """Runs the steps of a chunk and keeps their metrics' sums on the device
     (``metrics``, in ``METRICS`` order), so the host reads nothing between
-    steps. On a CUDA device with no mesh the steps are replays of a
-    ``StepGraph``, captured anew for each variant: the phase gates and the
-    resolved ``fg_batch`` (the JAX ``Trainer._step_fn``'s key), or data
-    other than the captured tensors. The first step of a variant is the
-    capture's warm-up, a real step. Elsewhere each step runs eagerly."""
+    steps. On a CUDA device with no mesh, or on an NCCL mesh
+    (``mesh.capture_blocker``), the steps are replays of a ``StepGraph``,
+    captured anew for each variant: the phase gates and the resolved
+    ``fg_batch`` (the JAX ``Trainer._step_fn``'s key), or data other than
+    the captured tensors. The first step of a variant is the capture's
+    warm-up, a real step. Elsewhere each step runs eagerly, and
+    ``eager_because`` says why.
+
+    On a mesh every rank captures and replays its own graph of the whole
+    data-parallel step, its collectives included, and every rank must
+    capture anew at the same step: it does by construction, since the
+    variant and ``_same_data`` are decided from what every rank holds alike
+    (the same gates, the same bank counts and data, rotated in place at the
+    same iteration)."""
 
     def __init__(self, model, opt, sched, generator: torch.Generator, cfg,
                  tcfg: TrackerConfig, mesh=None):
         self.model, self.opt, self.sched = model, opt, sched
         self.generator, self.cfg, self.tcfg, self.mesh = generator, cfg, tcfg, mesh
         self.metrics = torch.zeros(len(METRICS), device=generator.device)
-        self.graphed = (generator.device.type == "cuda"
-                        and not mesh_lib.is_parallel(mesh))
+        self.eager_because = eager_because(generator.device, mesh)
+        self.graphed = self.eager_because is None
         self._graph = self._variant = self._data = None
 
     def step(self, data: VideoData, use_cyc: bool, use_cl_ref: bool):
@@ -332,7 +351,7 @@ class StepRunner:
             self.release()
             self._graph = StepGraph(
                 functools.partial(self.step, data, use_cyc, use_cl_ref),
-                self.generator, self.generator.device)
+                self.generator, self.model, self.mesh)
             self._variant, self._data = variant, data
             n -= 1
         self._graph.replay(n)
@@ -413,6 +432,12 @@ class Trainer:
         i = max(i, 0)
 
         runner = StepRunner(model, opt, sched, generator, cfg, self.tcfg, self.mesh)
+        if runner.graphed:
+            logger.info("train steps: replays of the step captured into a CUDA "
+                        "graph once per phase%s", " on every rank"
+                        if mesh_lib.is_parallel(self.mesh) else "")
+        else:
+            logger.info("train steps: eager (%s)", runner.eager_because)
         running_n = 0
         main = mesh_lib.is_main(self.mesh)
         saver = ckpt_lib.AsyncSaver()

@@ -92,10 +92,20 @@ def kernel_launches() -> Dict[str, int]:
             "corr_lookup": window_gather.corr_lookup_cuda.launches}
 
 
+def graph_counts() -> Dict[str, int]:
+    """The train-step captures made and the steps replayed from them in this
+    process (``training/step_graph.StepGraph``'s counters, which callers
+    reset)."""
+    from ..training.step_graph import StepGraph
+    return {"captures": StepGraph.captures, "replays": StepGraph.replays}
+
+
 def rank_report(device: Optional[torch.device] = None) -> dict:
-    """What one process ran: its stage report, its kernel launches and, on a
-    card, the peak device memory (what a multi-rank CLI returns per rank)."""
-    report = {"stages": stage_report(), "launches": kernel_launches()}
+    """What one process ran: its stage report, its kernel launches, its
+    train-step captures and replays and, on a card, the peak device memory
+    (what a multi-rank CLI returns per rank)."""
+    report = {"stages": stage_report(), "launches": kernel_launches(),
+              "graphs": graph_counts()}
     if device is not None and torch.device(device).type == "cuda":
         report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     return report

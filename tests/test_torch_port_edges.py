@@ -8,7 +8,15 @@ refine cache (``models/tracker.py``) at T not a multiple of its 16-frame
 chunk. The contrastive losses (``training/contrastive.py``) with fewer
 foreground candidates than the foreground share asks for, and with none
 selected at all. On a mesh (``parallel/mesh.py``): more ranks than refine
-frames and than cycle points a pair, against one device.
+frames and than cycle points a pair, against one device. The loss terms and
+helpers of ``training/losses.py``, function by function: the Huber loss at
+its kink, infinities and NaN; the foreground lookup at and past the frame's
+edges and at NaN coordinates; the regularisers at zero and tiny norms; the
+mutual nearest neighbours with ties and NaN; the buddy InfoNCE and the
+cosine affinity with zero rows, in f32 and bf16, at temperatures 0.5 and
+0.01. One deliberate difference: where a buddy feature is exactly zero, the
+JAX gradient of its norm is NaN (even under a zero weight) and the port's 0;
+the step never samples an exactly zero feature.
 
 Tolerances are those of the files each function's parity test lives in:
 buddies and validity equal, cos within 1e-5 of max|cos|, r within 1e-6;
@@ -24,7 +32,7 @@ from dino_tracker_tpu_torch.config import TrackerConfig
 from dino_tracker_tpu_torch.models import tracker
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
 from dino_tracker_tpu_torch.preprocessing import best_buddies as bb_lib
-from dino_tracker_tpu_torch.training import contrastive, cycle
+from dino_tracker_tpu_torch.training import contrastive, cycle, losses
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -213,3 +221,114 @@ def test_more_ranks_than_frames_and_points_match_one_device():
     scale = float(one["grad"].abs().max())
     assert scale > 0
     torch.testing.assert_close(grad, one["grad"], rtol=1e-4, atol=1e-4 * scale)
+
+
+# --- training/losses.py at its edges ---
+
+def test_huber_at_its_kink_and_beyond_matches_jax():
+    from dino_tracker_tpu.training import losses as jlosses
+    d = np.float32(1 / 32)
+    x = np.array([0, d, -d, np.nextafter(d, np.float32(1)), np.nextafter(d, np.float32(0)),
+                  2 * d, -1e3, np.inf, -np.inf, np.nan], np.float32)
+    ours = losses.huber(torch.from_numpy(x), torch.tensor(0.0)).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jlosses.huber(x, np.float32(0))))
+
+
+def test_fg_lookup_at_and_past_the_frame_edges_matches_jax():
+    """Pixel coordinates at -1, -0.5, -0.25, 0, 0.5, the last pixel, half a
+    pixel and more past it, and NaN, on a mask that is foreground
+    everywhere and on one that is foreground only on its border."""
+    import jax.numpy as jnp
+    from dino_tracker_tpu.training import losses as jlosses
+    h, w = 6, 9
+    full = np.full((h, w), 255.0, np.float32)
+    border = full.copy()
+    border[1:-1, 1:-1] = 0
+    xs = [-1, -0.5, -0.25, 0, 0.5, w - 1, w - 0.5, w - 0.25, w, w + 1, np.nan]
+    ys = [-1, -0.5, 0, 2.5, h - 1, h - 0.5, h, np.nan]
+    pts = np.array([(x, y) for x in xs for y in ys], np.float32)
+    for mask in (full, border):
+        ours = losses.sample_fg_mask_at_points(torch.from_numpy(mask)[None],
+                                               torch.from_numpy(pts)[None], w, h)[0]
+        ref = jlosses.sample_fg_mask_at_points(jnp.asarray(mask), jnp.asarray(pts), w, h)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+        assert ours.any() and not ours.all()
+
+
+@pytest.mark.parametrize("raw_scale,refined_scale", [(0.0, 1.0), (1.0, 0.0), (0.0, 0.0),
+                                                     (1e-25, 1.0), (1e20, 1.0)])
+def test_regularisers_at_zero_and_extreme_norms_match_jax(raw_scale, refined_scale):
+    """One position of each stack scaled: zero and underflowing norms give
+    inf or NaN in both packages alike."""
+    import jax.numpy as jnp
+    from dino_tracker_tpu.training import losses as jlosses
+    rng = np.random.default_rng(3)
+    raw = rng.standard_normal((2, 3, 4, 8)).astype(np.float32)
+    refined = rng.standard_normal((2, 3, 4, 8)).astype(np.float32)
+    raw[0, 1, 2] *= raw_scale
+    refined[0, 1, 2] *= refined_scale
+    for name in ("emb_norm_regularization", "emb_angle_regularization"):
+        ours = float(getattr(losses, name)(torch.from_numpy(refined), torch.from_numpy(raw)))
+        ref = float(getattr(jlosses, name)(jnp.asarray(refined), jnp.asarray(raw),
+                                           channels_last=True))
+        np.testing.assert_allclose(ours, ref, rtol=1e-6, equal_nan=True, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(4, 3), (1, 5), (5, 1), (3, 3)])
+def test_mutual_nn_with_ties_and_nan_matches_jax(shape):
+    """Rows and columns with tied maxima (both take the first) and a NaN
+    (both take it as the maximum)."""
+    import jax.numpy as jnp
+    from dino_tracker_tpu.training import losses as jlosses
+    rng = np.random.default_rng(sum(shape))
+    aff = rng.integers(0, 3, shape).astype(np.float32)
+    aff.flat[len(aff.flat) // 2] = np.nan
+    ours = losses.mutual_nn(torch.from_numpy(aff))
+    ref = jlosses.mutual_nn(jnp.asarray(aff))
+    np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
+
+
+@pytest.mark.parametrize("temp", [0.5, 0.01])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_buddy_infonce_and_affinity_with_zero_rows_match_jax(dtype, temp):
+    """Zero buddy features and a zero frame position (the EPS clamps),
+    frame slabs rounded to the compute dtype (the JAX slab in that dtype),
+    at a temperature that makes the logits large: values within 1e-6 of
+    their largest magnitude, gradients of the non-zero buddy rows within
+    1e-5; at the zero buddy row the JAX gradient is NaN and the port's 0."""
+    import jax
+    import jax.numpy as jnp
+    from dino_tracker_tpu.training import losses as jlosses
+    rng = np.random.default_rng(5)
+    sb, tb = (rng.standard_normal((5, 16)).astype(np.float32) for _ in range(2))
+    sf, tf = (rng.standard_normal((7, 16)).astype(np.float32) for _ in range(2))
+    sb[0], tb[1], sf[2] = 0, 0, 0
+    weight = np.array([0, 0, 1, 1, 1], np.float32)  # the zero rows weigh nothing
+    tdt = getattr(torch, dtype)
+    norms = [np.linalg.norm(f, axis=1).astype(np.float32) for f in (sf, tf)]
+
+    def jloss(s):
+        a, b = jlosses.bb_pairs_contrastive_loss_nc(
+            s, jnp.asarray(tb), jnp.asarray(sf).astype(dtype), jnp.asarray(tf).astype(dtype),
+            *map(jnp.asarray, norms), temp)
+        return jnp.sum((a + b) * weight), (a, b)
+
+    (_, ref), gref = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(sb))
+    s = torch.from_numpy(sb).requires_grad_()
+    ours = losses.bb_pairs_contrastive_loss_nc(
+        s, torch.from_numpy(tb), torch.from_numpy(sf).to(tdt).float(),
+        torch.from_numpy(tf).to(tdt).float(), *map(torch.from_numpy, norms), temp, tdt)
+    ((ours[0] + ours[1]) * torch.from_numpy(weight)).sum().backward()
+    for o, r in zip(ours, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(o.detach().numpy(), r, rtol=0, atol=1e-6 * np.abs(r).max())
+    gref = np.asarray(gref)
+    assert np.isnan(gref[0]).all() and not s.grad[0].any()
+    np.testing.assert_allclose(s.grad[1:].numpy(), gref[1:], rtol=0,
+                               atol=1e-5 * np.abs(gref[1:]).max())
+    aff = losses.cosine_affinity(torch.from_numpy(sf), torch.from_numpy(tf), tdt).numpy()
+    jaff = np.asarray(jlosses.cosine_affinity(jnp.asarray(sf), jnp.asarray(tf),
+                                              getattr(jnp, dtype)))
+    np.testing.assert_allclose(aff, jaff, rtol=0, atol=1e-6)
+    assert not aff[2].any()

@@ -183,7 +183,8 @@ def test_chunked_trainer_equals_stepwise(steps_per_call, arrays, stepwise,
     model, chunks, lines = run(trainer(tmp_path, arrays, steps_per_call))
     want = {7: [7, 7, 1, 5, 7, 3, 7, 3, 5, 5, 7, 3], 25: [15, 5, 10, 10, 5, 5, 10]}
     assert chunks == want[steps_per_call] and sum(chunks) == 60
-    assert lines == lines1 and len(lines) == 3
+    assert lines == lines1 and len(lines) == 4  # the step mode, then 3 logs
+    assert lines[0] == "train steps: eager (cpu tensors: CUDA graphs hold only CUDA work)"
     assert_equal(model.state_dict(), model1.state_dict(), "model")
     assert ckpt.checkpoint_steps(str(tmp_path)) == [60, 50]
     for step in (50, 60):
