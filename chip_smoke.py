@@ -12,6 +12,7 @@
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
                                              # K3) and 13 at T=50 over NCCL
+    python3 chip_smoke.py --full-width   # phases 1, 2 and 14 only
 
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -197,7 +198,26 @@ Phases, one line or more each (any failure raises and exits non-zero):
      gloo on one card the gathers go through host memory: an equality
      check, not a speed path. With --mesh-devices N: N ranks over NCCL, one
      card each (T=8, or --preprocess-frames T).
-Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13) runs with every kernel's
+  14. full width against the JAX package: for each stage of the goldens in
+     tests/fixtures/full_width/ (made by scripts/gen_full_width_golden.py
+     from the JAX package on a CPU), its inputs are rebuilt from the
+     golden's seed by scripts/full_width_inputs.py (numpy alone) and their
+     sha256 digests checked against the golden's, then run through the
+     port's entry points: a. load_dinov2_state_dict, build_vit and
+     extract_feature_video (dinov2_vitl14, 2 frames of 854×476, layers 15
+     and 23, f32 and bf16: K2's f32 and bf16 kernels); b. load_raft_state_dict
+     and the RaftFlowEngine's decode of 2 pairs in its 8-pair batch (24
+     iterations, f32: K3); c. convert.state_from_jax, train.step_losses and
+     backward at TrainConfig's widths on the golden's injected batch, both
+     sets of gates, f32 and bf16 (K1-fwd, K1-bwd); d. runtime.
+     make_model_inference (T=20, refine chunks of 16: K1-fwd) and one
+     256-point ModelInference.infer, f32 and bf16; e. extract_best_buddies
+     with the fused flow filter, closest_trajectory_grids and
+     compute_bb_ambiguity (T=4, C=1024, 12,000 trajectories). Each stage is
+     held to the golden under the tolerances it records (full_width_inputs.
+     TOLERANCES); the largest error of each kind is printed beside its
+     bound, with the stage's seconds; any miss raises.
+Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14) runs with every kernel's
 launch count set to 0 just before it and read just after (the ranks of
 phases 12 and 13 start from 0 in their own processes and report their
 counts). A wrapper counts the launches it makes; the replays of a captured
@@ -205,8 +225,8 @@ train step run no wrapper, and phase 5 (and phase 12's train chunks on each
 NCCL rank) counts the K1 kernels they run from a trace of the card (phases
 11 and 12 leave the CLIs' replays untraced, so their timers are not the
 profiler's). Then one JSON line with the kernels (K2 and
-K3 counted over phases 6 + 9 + 11 + 13 and 8 + 9 + 11 + 13, K1 over
-4 + 5 + 11 + 12), and last {"ok": true, "device": ...}.
+K3 counted over phases 6 + 9 + 11 + 13 + 14 and 8 + 9 + 11 + 13 + 14, K1
+over 4 + 5 + 11 + 12 + 14), and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -227,6 +247,7 @@ import pickle
 import shutil
 import subprocess
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -270,8 +291,10 @@ TRAINER_ITERATIONS, TRAINER_GATES, TRAINER_CHECKPOINT, TRAINER_LOG = 50, 20, 30,
 # the gates on lost kernels: the counts are checked)
 K1_KERNELS = ("blurpool_down_kernel", "blurpool_up_kernel")
 TRACE_STEPS = 5
-WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke")
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+WORK_DIR = os.path.join(REPO_DIR, "build", "chip_smoke")
+# phase 14's goldens, made by scripts/gen_full_width_golden.py
+GOLDEN_DIR = os.path.join(REPO_DIR, "tests", "fixtures", "full_width")
 # K2 on the ViT feature stage's main path: 4 frames a batch × 16 heads,
 # 67·121 tokens + cls, head dim 64, bf16
 ATTN_SHAPE = (4, 16, 8108, 64)
@@ -372,30 +395,6 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 def bf16_ulp(y: torch.Tensor) -> float:
     return float(2.0 ** (np.floor(np.log2(y.abs().max().item())) - 7))
-
-
-def jax_layout_weights(rng, channels, head_shift=0.0):
-    """Random (params, batch_stats) in the JAX package's pytree layout (HWIO
-    convs, torch-default kaiming-uniform bounds), non-zero everywhere."""
-    def conv(k, cin, cout):
-        bound = 1.0 / np.sqrt(cin * k * k)  # kaiming_uniform(a=√5)
-        return {"w": rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32),
-                "b": rng.uniform(-bound, bound, cout).astype(np.float32)}
-
-    layers, stats = [], []
-    for i in range(len(channels) - 1):
-        cout = channels[i + 1]
-        scale = 0.05 if i == len(channels) - 2 else 1.0
-        layers.append({"conv": conv(5, channels[i], cout),
-                       "bn": {"scale": np.full(cout, scale, np.float32),
-                              "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32)}})
-        stats.append({"mean": (rng.standard_normal(cout) * 0.1).astype(np.float32),
-                      "var": (rng.random(cout) + 0.5).astype(np.float32)})
-    head = {"conv1": conv(3, 1, 16), "conv2": conv(3, 16, 1)}
-    for c in head.values():
-        c["w"] += np.float32(head_shift)
-    return ({"delta_dino": {"layers": layers}, "tracker_head": head},
-            {"delta_dino": {"layers": stats}})
 
 
 def make_inputs(t, h, w, c, feat_hw, device, seed):
@@ -609,7 +608,7 @@ def phase_slice(bp, dev):
     tcfg = TrackerConfig(video_h=H, video_w=W, delta_channels=CHANNELS,
                          compute_dtype="bfloat16")
     rng = np.random.default_rng(0)
-    params, stats = jax_layout_weights(rng, CHANNELS)
+    params, stats = full_width_inputs().jax_layout_weights(rng, CHANNELS)
     model = build_model(params, stats, tcfg, dev)
     video, dino = make_inputs(T, H, W, CHANNELS[-1], tcfg.feat_hw, dev, 1)
     torch.cuda.synchronize()
@@ -920,6 +919,7 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     "digest": a hash of the graph run's parameters and BN statistics}}."""
     import copy
     import hashlib
+    from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
     from dino_tracker_tpu_torch.training import train
     every, gamma = cfg.apply_scheduler_every, cfg.scheduler_gamma
 
@@ -978,33 +978,41 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 kept[name] = runner
             del model, runner
         a, g = runs["eager A"], runs["graph"]
-        check(all(torch.equal(getattr(g[0], k), getattr(a[0], k))
-                  for k in ("frames", "src", "tgt", "lrs")),
-              f"gates {gates}: the graph's batches or learning rates differ from the "
-              f"eager steps'")
-        same = [torch.equal(g[0].src[k], g[0].src[k + 1]) and torch.equal(
-            g[0].tgt[k], g[0].tgt[k + 1]) for k in range(CHUNK_STEPS - 1)]
-        check(not any(same), f"gates {gates}: replays drew the same batch: {same}")
-        lrs = g[0].lrs.double().cpu().numpy()
-        want = cfg.lr_delta_dino * gamma ** ((CHUNK_START + np.arange(CHUNK_STEPS)) // every)
-        cross = every - CHUNK_START
-        check(np.abs(lrs / want - 1).max() <= 1e-6 and lrs[cross] < lrs[cross - 1]
-              and g[5] == CHUNK_START + CHUNK_STEPS,
-              f"gates {gates}: the schedule inside the graph: rates {lrs}, expected "
-              f"{want}, count {g[5]}")
-        eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
-        loss_rows = spread_rows(train.METRICS, list(g[0].losses.T),
-                                [list(r[0].losses.T) for r in eager], floor=CHUNK_LOSS_FLOOR)
-        bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
-                              from_state(start, b_names))
-        verdicts = [spread_summary("losses", loss_rows),
-                    params_summary(p_names, g[1], [r[1] for r in eager],
-                                   from_state(start, p_names), CHUNK_STEPS,
-                                   cfg.lr_cnn_refiner),
-                    spread_summary("BN statistics' change", bn_rows)]
-        check(all(v[0] for v in verdicts),
-              f"gates {gates}: the graph disagrees with the eager steps: "
-              + "; ".join(v[1] for v in verdicts if not v[0]))
+        # every rank learns of any rank's miss or fault before the next collective
+        misses = []
+        try:
+            if not all(torch.equal(getattr(g[0], k), getattr(a[0], k))
+                       for k in ("frames", "src", "tgt", "lrs")):
+                misses.append("the graph's batches or learning rates differ from the eager "
+                              "steps'")
+            same = [torch.equal(g[0].src[k], g[0].src[k + 1]) and torch.equal(
+                g[0].tgt[k], g[0].tgt[k + 1]) for k in range(CHUNK_STEPS - 1)]
+            if any(same):
+                misses.append(f"replays drew the same batch: {same}")
+            lrs = g[0].lrs.double().cpu().numpy()
+            want = cfg.lr_delta_dino * gamma ** ((CHUNK_START + np.arange(CHUNK_STEPS)) // every)
+            cross = every - CHUNK_START
+            if not (np.abs(lrs / want - 1).max() <= 1e-6 and lrs[cross] < lrs[cross - 1]
+                    and g[5] == CHUNK_START + CHUNK_STEPS):
+                misses.append(f"the schedule inside the graph: rates {lrs}, expected {want}, "
+                              f"count {g[5]}")
+            eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
+            loss_rows = spread_rows(train.METRICS, list(g[0].losses.T),
+                                    [list(r[0].losses.T) for r in eager], floor=CHUNK_LOSS_FLOOR)
+            bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
+                                  from_state(start, b_names))
+            verdicts = [spread_summary("losses", loss_rows),
+                        params_summary(p_names, g[1], [r[1] for r in eager],
+                                       from_state(start, p_names), CHUNK_STEPS,
+                                       cfg.lr_cnn_refiner),
+                        spread_summary("BN statistics' change", bn_rows)]
+            if not all(v[0] for v in verdicts):
+                misses.append("the graph disagrees with the eager steps: "
+                              + "; ".join(v[1] for v in verdicts if not v[0]))
+        except Exception:  # a fault of this rank's checks, reported on every rank
+            misses.append(traceback.format_exc())
+        mesh_lib.agree("; ".join(misses) or None, None, mesh,
+                       f"train chunks, gates {gates}")
         digest = hashlib.sha256()
         for x in g[1] + g[2]:
             digest.update(x.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
@@ -1350,7 +1358,7 @@ def phase_reference(dev):
     # shift the head taps so each 3×3 kernel's sum (the normalized conv's
     # divisor) stays far from 0: a near-zero sum amplifies the two devices'
     # f32 summation-order differences without bound
-    params, stats = jax_layout_weights(rng, channels, head_shift=0.3)
+    params, stats = full_width_inputs().jax_layout_weights(rng, channels, head_shift=0.3)
     video, dino = make_inputs(t, h, w, channels[-1], tcfg.feat_hw, dev, 3)
     qp = np.concatenate([queries(rng, 8, f, h, w) for f in (0, 3, 5)])
     out = {}
@@ -2574,8 +2582,8 @@ def mesh_equality(mesh, data_path, train_yaml, device_type="cuda"):
             model = train.Trainer(cfg, rt.tcfg, data, "", seed=2, device=dev
                                   ).init_model().train()
         else:
-            model = build_model(*jax_layout_weights(np.random.default_rng(9), channels,
-                                                    0.1), rt.tcfg, dev).train()
+            model = build_model(*full_width_inputs().jax_layout_weights(
+                np.random.default_rng(9), channels, 0.1), rt.tcfg, dev).train()
         gen = torch.Generator(device=dev).manual_seed(2)
         sample = sample_batch(gen, data.fg_bank, data.bg_bank, cfg.train_batch_size,
                               cfg.batch_n_frames, cfg.fg_traj_ratio, data.video.shape[0],
@@ -2590,8 +2598,8 @@ def mesh_equality(mesh, data_path, train_yaml, device_type="cuda"):
                                  if p.grad is not None},
                           buffers={n: b.cpu() for n, b in model.named_buffers()})
         del model, total
-    model = build_model(*jax_layout_weights(np.random.default_rng(9), channels, 0.1),
-                        rt.tcfg, dev).train()
+    model = build_model(*full_width_inputs().jax_layout_weights(
+        np.random.default_rng(9), channels, 0.1), rt.tcfg, dev).train()
     opt, sched = train.make_optimizer(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(3)
     for i in range(MESH_REPLICA_STEPS):
@@ -3152,6 +3160,378 @@ def phase_mesh_preprocess(dev, frames_dir, cli_args, n_ranks, share, smi, t):
     return dirs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: full width against the JAX package's goldens
+# ---------------------------------------------------------------------------
+
+def full_width_inputs():
+    """scripts/full_width_inputs.py, the numpy maker the golden generator
+    imports under the same name."""
+    import sys
+    scripts = os.path.join(REPO_DIR, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import full_width_inputs
+    return full_width_inputs
+
+
+def load_golden(stage, golden_dir=GOLDEN_DIR):
+    """(meta, records) of tests/fixtures/full_width/<stage>.npz."""
+    with np.load(os.path.join(golden_dir, f"{stage}.npz")) as f:
+        return (json.loads(str(f["meta"])),
+                {k[len("rec/"):]: f[k] for k in f.files if k.startswith("rec/")})
+
+
+def golden_inputs(stage, meta):
+    """The stage's inputs rebuilt from the golden's seed and widths, their
+    digests checked against the golden's: (inputs, widths)."""
+    fw = full_width_inputs()
+    wd = {w.name: w for w in (fw.FULL, fw.TOY)}[meta["widths"]["name"]]
+    check(json.loads(json.dumps(dataclasses.asdict(wd))) == meta["widths"],
+          f"full width {stage}: the golden was made at other widths than {wd.name}")
+    inp = fw.make(stage, wd, meta["seed"])
+    got = fw.digests(inp)
+    bad = sorted(k for k in meta["input_digests"].keys() | got.keys()
+                 if meta["input_digests"].get(k) != got.get(k))
+    check(not bad, f"full width {stage}: {len(bad)} input digests differ from the "
+          f"golden's (first {bad[:3]}; numpy {np.__version__}, golden's "
+          f"{meta['numpy']})")
+    check(meta["tolerances"] == fw.TOLERANCES[stage],
+          f"full width {stage}: the golden records other tolerances")
+    return inp, wd
+
+
+def _torch_dtype(name):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def full_width_vit(inp, wd, dev):
+    """Stage a: the DINOv2 state dict through load_dinov2_state_dict and
+    build_vit, then extract_feature_video on the frames (4 a batch), layers
+    ``wd.vit_layers``, f32 and bf16 -> ({dtype: {layer: T×D×h×w numpy}},
+    {dtype: K2 launches})."""
+    from dino_tracker_tpu_torch.models import vit, vit_convert
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    d, depth, heads, mlp, grid = wd.vit
+    cfg = vit.ViTConfig(embed_dim=d, depth=depth, num_heads=heads, mlp_ratio=mlp,
+                        patch_size=14, pretrain_grid=grid)
+    state, cfg = vit_convert.load_dinov2_state_dict(inp["weights"], cfg=cfg)
+    model = vit_convert.build_vit(state, cfg, dev)
+    video = torch.from_numpy(inp["frames"]).to(dev)
+    out, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        before = fa.flash_attention_cuda.launches
+        feats = vit.extract_feature_video(model, video, stride=7, layer=list(wd.vit_layers),
+                                          compute_dtype=_torch_dtype(dtype))
+        launches[dtype] = fa.flash_attention_cuda.launches - before
+        out[dtype] = {layer: f.cpu().numpy() for layer, f in zip(wd.vit_layers, feats)}
+    return out, launches
+
+
+def full_width_raft(inp, wd, dev):
+    """Stage b: the princeton-vl state dict through load_raft_state_dict, then
+    the flow engine's decode of the pairs (one batch padded to its 8 pairs),
+    f32 -> N×2×H×W numpy."""
+    from dino_tracker_tpu_torch.models import raft
+    from dino_tracker_tpu_torch.preprocessing.flow import RaftFlowEngine
+    model = raft.load_raft_state_dict(inp["weights"], dev)
+    eng = RaftFlowEngine(model, torch.from_numpy(inp["frames"]).to(dev),
+                         num_iters=wd.raft_iters, device=dev)
+    return eng.decode(inp["source"], inp["target"]).cpu().numpy()
+
+
+def full_width_train(inp, wd, dev):
+    """Stage c: one train step (train.step_losses and backward) from the
+    JAX-layout weights (convert.state_from_jax) on the injected batch, each
+    set of gates, f32 and bf16 -> {dtype: {gates: (losses, gradients and new
+    BN statistics as JAX-layout trees (convert.state_to_jax))}}. The
+    TrainConfig is the golden generator's: TrainConfig's widths, the
+    contrastive terms taking every candidate."""
+    from dino_tracker_tpu_torch import convert
+    from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+    from dino_tracker_tpu_torch.models.tracker import Tracker
+    from dino_tracker_tpu_torch.structures import BBData
+    from dino_tracker_tpu_torch.training import cycle, sampler, train
+    tdev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    data = train.VideoData(tdev(inp["video"]), tdev(inp["dino"]), tdev(inp["masks"]),
+                           BBData(**{k: tdev(v) for k, v in inp["bb"].items()}),
+                           sampler.build_bank(inp["fg_trajectories"], device=dev),
+                           sampler.build_bank(inp["bg_trajectories"], device=dev))
+    sample = sampler.TrainSample(**{k: tdev(v) for k, v in inp["sample"].items()})
+    cyc = cycle.CycleData(**{k: tdev(v) for k, v in inp["cyc"].items()})
+    pairs = lambda p: (p["source"], p["target"])
+    state = convert.state_from_jax(inp["params"], inp["stats"])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = TrainConfig(video_resh=wd.h, video_resw=wd.w, train_batch_size=wd.batch,
+                          batch_n_frames=wd.batch_n_frames, cyc_n_frames=wd.cyc[0],
+                          cyc_batch_size_per_frame=wd.cyc[1], cl_n_frames=wd.cl_pairs,
+                          cl_points_per_pair=2 * wd.n_feat, cl_fg_points_ratio=0.5,
+                          compute_dtype=dtype)
+        tcfg = TrackerConfig(video_h=wd.h, video_w=wd.w, delta_channels=wd.channels,
+                             compute_dtype=dtype)
+        out[dtype] = {}
+        for gates in (False, True):
+            model = Tracker(tcfg)
+            model.load_state_dict(state)
+            model = model.to(dev).train()
+            total, metrics = train.step_losses(
+                model, data, sample, torch.Generator(device=dev).manual_seed(0), cfg, tcfg,
+                gates, gates, cyc_data=cyc, dino_pair_sel=pairs(inp["dino_pairs"]),
+                ref_pair_sel=pairs(inp["ref_pairs"]))
+            total.backward()
+            sd = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                  for n, p in model.named_parameters()}
+            sd.update((n, b) for n, b in model.named_buffers() if "running" in n)
+            grads, stats = convert.state_to_jax(sd)
+            out[dtype][gates] = ({k: float(v) for k, v in metrics.items()}, grads, stats)
+    return out
+
+
+def full_width_refine(inp, wd, dev):
+    """Stage d: runtime.make_model_inference (the refine, in chunks of 16
+    frames) and ModelInference.infer on the query points, f32 and bf16 ->
+    {dtype: (T×h×w×C refined, tracks N×T×2, occluded N×T, the request's
+    chunk)}."""
+    from dino_tracker_tpu_torch import convert, runtime
+    from dino_tracker_tpu_torch.config import TrackerConfig
+    from dino_tracker_tpu_torch.models.tracker import Tracker
+    video = torch.from_numpy(inp["video"]).to(dev)
+    dino = torch.from_numpy(inp["dino"]).to(dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        tcfg = TrackerConfig(video_h=wd.h, video_w=wd.w, delta_channels=wd.channels,
+                             compute_dtype=dtype)
+        model = Tracker(tcfg)
+        model.load_state_dict(convert.state_from_jax(inp["params"], inp["stats"]))
+        mi = runtime.make_model_inference(model.to(dev), video, dino, tcfg, ANCHOR_COS, COS,
+                                          chunk=wd.infer_chunk)
+        trajs, occ = mi.infer(inp["queries"])
+        out[dtype] = (mi.refined_features.cpu().numpy(), trajs, occ, mi.chunk)
+        del mi, model
+    return out
+
+
+def full_width_bb(inp, wd, dev):
+    """Stage e: extract_best_buddies with the fused flow filter,
+    closest_trajectory_grids (chunks of ``wd.bb_chunk``) and
+    compute_bb_ambiguity (slabs of ``wd.bb_slab`` rows) -> (BBData fields
+    numpy, closest T×n)."""
+    from dino_tracker_tpu_torch.preprocessing import best_buddies as bbl
+    from dino_tracker_tpu_torch.utils.coords import bb_meshgrid
+    feats, trajs = torch.from_numpy(inp["features"]).to(dev), inp["trajectories"]
+    bb = bbl.extract_best_buddies(feats, wd.h, wd.w, 7, unfiltered_trajectories=trajs)
+    closest = bbl.closest_trajectory_grids(trajs, bb_meshgrid(wd.h, wd.w, device=dev),
+                                           chunk=wd.bb_chunk)
+    bb = bbl.compute_bb_ambiguity(bb, feats, wd.h, wd.w, 7, rows_per_slab=wd.bb_slab)
+    return [x.cpu().numpy() for x in bb], closest.cpu().numpy()
+
+
+def _err(name, got, want, bound):
+    """(name, largest |got − want|, bound)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{name}: shape {got.shape}, golden {want.shape}")
+    return name, float(np.abs(got - want).max()) if got.size else 0.0, float(bound)
+
+
+def _judge(stage, rows):
+    """Raises on any row above its bound; returns the rows."""
+    bad = [r for r in rows if not r[1] <= r[2]]
+    check(not bad, f"full width {stage} differs from the JAX package: " + "; ".join(
+        f"{n} {e:.4g} > {b:.4g}" for n, e, b in bad[:8]))
+    return rows
+
+
+def compare_vit(meta, rec, out):
+    """f32: the sampled tokens' vectors, every token's norm and every
+    channel's mean within tolerances["float32"] of the layer's largest
+    |feature|. bf16: each sampled token's cosine with the golden's at least
+    tolerances["bfloat16_cosine"] (the JAX "bf16" computes in f32 at this
+    grid; the port keeps bf16 operands)."""
+    fw = full_width_inputs()
+    tol = meta["tolerances"]
+    rows = []
+    for dtype, layers in out[0].items():
+        for layer, x in layers.items():
+            key = f"{dtype}/layer{layer}/"
+            got = fw.record_features(x, rec[key + "tokens"])
+            if dtype == "float32":
+                bound = tol["float32"] * rec[key + "absmax"]
+                rows += [_err(f"{key}{k}", got[k], rec[key + k], bound)
+                         for k in ("token_vals", "token_norm", "chan_mean")]
+            else:
+                a, b = got["token_vals"], rec[key + "token_vals"]
+                cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+                rows.append((f"{key}1-cosine", float(1 - cos.min()),
+                             1 - tol["bfloat16_cosine"]))
+    return _judge("vit", rows)
+
+
+def compare_raft(meta, rec, out):
+    """The flow at a stride of 4 and every row's mean within
+    tolerances["flow"] of max|flow|."""
+    fw = full_width_inputs()
+    got = fw.record_flow(out)
+    bound = meta["tolerances"]["flow"] * rec["absmax"]
+    return _judge("raft", [_err(k, got[k], rec[k], bound) for k in ("flow_s4", "row_mean")])
+
+
+# gradients that are float noise in both packages (test_torch_train_step.py)
+NULL_GRAD_PATHS = {"tracker_head/conv2/b"}
+
+
+def cancelling_grad(path, n_layers):
+    """The BN shift of a DeltaDINO layer (of ``n_layers``) that feeds another
+    train-mode BN: its gradient sums cotangents that cancel
+    (full_width_inputs.TOLERANCES)."""
+    parts = path.split("/")
+    return (parts[0] == "delta_dino" and parts[-2:] == ["bn", "bias"]
+            and int(parts[2]) < n_layers - 1)
+
+
+def compare_train(meta, rec, out):
+    """Each phase and dtype: every loss term within the loss rtol (atol
+    1e-7), BN's new statistics within the stats rtol (atol 1e-5), and each
+    gradient's sampled elements within the grad share of its largest
+    magnitude, its norm and sum within that share of its norm and of its
+    sum of magnitudes, under the "grad_cancelling" share for the BN shifts
+    that feed another train-mode BN; a gradient the JAX package gives
+    exactly 0 (the detached conv biases) must be 0."""
+    fw = full_width_inputs()
+    rows = []
+    for dtype, phases in out.items():
+        tol = meta["tolerances"][dtype]
+        for gates, (metrics, grads, stats) in phases.items():
+            key = f"{dtype}/gates_{'on' if gates else 'off'}/"
+            for k, v in metrics.items():
+                want = rec[f"{key}loss/{k}"]
+                rows.append((f"{key}loss/{k}", abs(v - float(want)),
+                             tol["loss"] * abs(float(want)) + 1e-7))
+            for path, v in fw.flatten(stats).items():
+                want = rec[f"{key}stats/{path}"]
+                rows.append((f"{key}stats/{path}", float(np.abs(v - want).max()),
+                             float(tol["stats"] * np.abs(want).max() + 1e-5)))
+            for path, g in fw.flatten(grads).items():
+                if path in NULL_GRAD_PATHS:
+                    continue
+                gk = f"{key}grad/{path}/"
+                got = fw.record_tensor(g, rec[gk + "idx"])
+                share = tol["grad_cancelling" if cancelling_grad(
+                    path, len(meta["widths"]["channels"]) - 1) else "grad"]
+                rows.append(_err(gk + "vals", got["vals"], rec[gk + "vals"],
+                                 share * float(rec[gk + "absmax"])))
+                rows.append(_err(gk + "norm", got["norm"], rec[gk + "norm"],
+                                 share * float(rec[gk + "norm"])))
+                rows.append(_err(gk + "sum", got["sum"], rec[gk + "sum"],
+                                 share * float(rec[gk + "l1"])))
+    return _judge("train", rows)
+
+
+def compare_refine(meta, rec, out):
+    """f32: the refined stack's sampled elements and per-frame channel means
+    within the refined share of its largest magnitude, every track within
+    track_px, every occlusion flag equal. bf16: the same, each bound at least
+    as wide as bf16 moves the JAX package's own output (its bf16 record
+    against its f32 one)."""
+    fw = full_width_inputs()
+    rows = []
+    for dtype, (refined, trajs, occ, chunk) in out.items():
+        tol = meta["tolerances"][dtype]
+        key = f"{dtype}/"
+        got = fw.record_refined(refined, rec[key + "refined/idx"])
+        spread = lambda k: (float(np.abs(rec[f"bfloat16/{k}"].astype(np.float64)
+                                         - rec[f"float32/{k}"]).max())
+                            if dtype == "bfloat16" else 0.0)
+        bound = max(tol["refined"] * float(rec[key + "refined/absmax"]),
+                    spread("refined/vals"))
+        rows.append(_err(key + "refined/vals", got["vals"], rec[key + "refined/vals"], bound))
+        rows.append(_err(key + "refined/chan_mean", got["chan_mean"],
+                         rec[key + "refined/chan_mean"],
+                         max(bound, spread("refined/chan_mean"))))
+        rows.append(_err(key + "tracks", trajs, rec[key + "tracks"],
+                         max(tol["track_px"], spread("tracks"))))
+        rows.append((key + "occlusion flags differing", float((occ != rec[key + "occluded"]).sum()),
+                     float((rec["bfloat16/occluded"] != rec["float32/occluded"]).sum())
+                     if dtype == "bfloat16" else 0.0))
+        rows.append((key + "chunk", float(abs(chunk - int(rec[key + "chunk"]))), 0.0))
+    return _judge("refine", rows)
+
+
+def compare_bb(meta, rec, out):
+    """Every per-pair count, buddy token, cosine, ratio r, the capacity and
+    every closest trajectory equal (exact products, see full_width_inputs.
+    bb_inputs)."""
+    fw = full_width_inputs()
+    wd_h, wd_w = meta["widths"]["h"], meta["widths"]["w"]
+    fields, closest = out
+    got = fw.record_bb(*fields, wd_h, wd_w)
+    got["capacity"] = np.int64(fields[4].shape[-1])
+    got["closest"] = closest.astype(np.int32)
+    rows = []
+    for k in ("counts", "capacity", "source_tok", "target_tok", "cos_1024", "r", "closest"):
+        g, want = np.asarray(got[k]), rec[k]
+        same = g.shape == want.shape and np.array_equal(g, want)
+        rows.append((k, 0.0 if same else float(np.inf if g.shape != want.shape else
+                                                (g != want).sum()), 0.0))
+    return _judge("bb", rows)
+
+
+FULL_WIDTH_STAGES = {"vit": (full_width_vit, compare_vit),
+                     "raft": (full_width_raft, compare_raft),
+                     "train": (full_width_train, compare_train),
+                     "refine": (full_width_refine, compare_refine),
+                     "bb": (full_width_bb, compare_bb)}
+
+
+def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
+    """Phase 14: each stage's inputs rebuilt and checked against the golden's
+    digests, run through the port's entry points on ``dev`` and held to the
+    golden; each stage's largest error beside its bound, and its seconds.
+    Returns the launches of K1-fwd, K1-bwd, K2 and K3 in the phase."""
+    from dino_tracker_tpu_torch.ops import blurpool as bp
+    from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import window_gather as wg
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    reset_counts()
+    for stage, (run, compare) in FULL_WIDTH_STAGES.items():
+        t0 = time.perf_counter()
+        meta, rec = load_golden(stage, golden_dir)
+        inp, wd = golden_inputs(stage, meta)
+        t_in = time.perf_counter() - t0
+        out = run(inp, wd, dev)
+        fence(dev)
+        if stage == "vit":
+            k2_by_dtype = out[1]
+        rows = compare(meta, rec, out)
+        share = lambda r: r[1] / r[2] if r[2] else (0.0 if r[1] == 0 else np.inf)
+        worst = {}  # the largest error of each kind (dtype, last name), beside its bound
+        for r in rows:
+            parts = r[0].split("/")
+            kind = (parts[0], parts[-1])
+            if kind not in worst or share(r) > share(worst[kind]):
+                worst[kind] = r
+        top = max(rows, key=share)
+        print(f"full width {stage}: {len(meta['input_digests'])} input digests equal the "
+              f"golden's (JAX {meta['jax']}); {len(rows)} checks, each within its bound; "
+              f"closest: {top[0]} {top[1]:.4g} (bound {top[2]:.4g}); "
+              f"{time.perf_counter() - t0:.2f} s ({t_in:.2f} s making the inputs); {smi}",
+              flush=True)
+        for name, err, b in worst.values():
+            print(f"full width {stage}:   {name} {err:.4g} (bound {b:.4g})", flush=True)
+        del out, inp
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
+                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+    print(f"full width: launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 "
+          f"{launches[2]} (f32 {k2_by_dtype['float32']}, bf16 {k2_by_dtype['bfloat16']}), "
+          f"K3 {launches[3]}; the phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    check(all(launches) and all(k2_by_dtype.values()),
+          "full width: a kernel did not launch in phase 14")
+    return launches
+
+
 def build_kernels(sources):
     """nvcc for each (name, module) at once; prints each source's seconds and
     what ptxas reports for its kernels."""
@@ -3189,6 +3569,9 @@ def main():
                          "phases 13 and 12 with this many ranks, one card each over "
                          "NCCL (needs that many cards); with --preprocess-frames T, "
                          "only the K2 and K3 builds and phase 13 at T frames")
+    ap.add_argument("--full-width", action="store_true",
+                    help="run only the kernel builds and phase 14 (the port at full "
+                         "width against the JAX package's goldens)")
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
@@ -3264,6 +3647,11 @@ def main():
             video_h=H, video_w=W, delta_channels=CHANNELS).feat_hw, dev, 1)
         phase_train(bp, dev, video, dino, smi)
         return
+    if args.full_width:  # phase 14 alone
+        build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
+                       ("corr_lookup.cu", wg)])
+        phase_full_width(dev, smi)
+        return
     if args.preprocess_frames:  # the preprocess CLI alone
         build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
         phase_preprocess(dev, args.preprocess_frames)
@@ -3334,19 +3722,20 @@ def main():
         dev, os.path.join(e2e_root, "videos", "0", "video"),
         ["--config", os.path.join(e2e_root, "preprocessing.yaml"), "--raft-checkpoint",
          weights[0], "--dino-checkpoint", weights[1]], MESH_RANKS, True, smi, E2E_T)
+    full = phase_full_width(dev, smi)
     print_kernels((k1, k1_bwd, k2, k3),
-                  (infer_launches + train_launches[0] + e2e[0] + mesh[0],
-                   train_launches[1] + e2e[1] + mesh[1],
-                   vit_launches + pre_k2 + e2e[2] + mesh_pre[0],
-                   raft_launches + pre_k3 + e2e[3] + mesh_pre[1]))
+                  (infer_launches + train_launches[0] + e2e[0] + mesh[0] + full[0],
+                   train_launches[1] + e2e[1] + mesh[1] + full[1],
+                   vit_launches + pre_k2 + e2e[2] + mesh_pre[0] + full[2],
+                   raft_launches + pre_k3 + e2e[3] + mesh_pre[1] + full[3]))
     print_ok()
 
 
 def print_kernels(numbers, launches):
     """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
     K3 also the preprocess CLI's and every rank's of phase 13, every kernel
-    also the whole system's, K1 also every rank's of phase 12), each counted
-    from 0; K1 ms / plain_ms /
+    also the whole system's and phase 14's, K1 also every rank's of phase
+    12), each counted from 0; K1 ms / plain_ms /
     bound_ms: the sum over its three bf16 shapes; K2's at the ViT stage's
     shape; K3's at one decode batch's."""
     rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),

@@ -349,11 +349,14 @@ def load_raft_state_dict(path_or_sd: Union[str, Mapping[str, torch.Tensor]],
                          device: Union[str, torch.device] = "cuda") -> RAFT:
     """A RAFT-large in eval mode on ``device`` from a princeton-vl state dict
     or ``.pth`` path (``module.``-prefixed or not; ``num_batches_tracked``
-    may be present or absent)."""
+    may be present or absent). princeton-vl's strided batch-norm blocks
+    register their downsample BN twice, as ``norm3`` and ``downsample.1``,
+    so a published checkpoint holds both; ``norm3`` is dropped, as the JAX
+    converter (``convert_raft_state_dict``) never reads it."""
     sd = (torch.load(path_or_sd, map_location="cpu", weights_only=True)
           if isinstance(path_or_sd, str) else path_or_sd)
     sd = {k[len("module."):] if k.startswith("module.") else k: torch.as_tensor(v)
-          for k, v in sd.items()}
+          for k, v in sd.items() if ".norm3." not in k}
     model = RAFT()
     model.load_state_dict(sd)
     return model.to(device).eval()

@@ -376,6 +376,12 @@ def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
         dist.destroy_process_group()
 
 
+def _rank_errors(workdir: str, n: int) -> list:
+    """The tracebacks the failed ranks of a ``spawn`` left, in rank order."""
+    return [f"rank {r}:\n{open(path).read()}" for r in range(n)
+            if os.path.exists(path := os.path.join(workdir, f"error_{r}.txt"))]
+
+
 def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
           args: tuple = (), share_device: bool = False,
           timeout: Optional[float] = None) -> list:
@@ -390,7 +396,9 @@ def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
     function). A rank that raises makes ``spawn`` stop the others and raise;
     so does a run longer than ``timeout`` seconds. The error lists every
     failed rank's traceback: the first rank to fail need not be the first
-    one reported."""
+    one reported. A rank that failed may not exit (NCCL's teardown waits
+    for peers blocked in a collective it left), so the timeout's error
+    lists the tracebacks of the ranks that failed before it too."""
     check_devices(n_devices, device_type, share_device)
     workdir = tempfile.mkdtemp(prefix="mesh-")
     try:
@@ -406,12 +414,12 @@ def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
                         p.terminate()
                     for p in ctx.processes:
                         p.join()
-                    raise TimeoutError(f"{n_devices} ranks did not finish in "
-                                       f"{timeout} s")
+                    errors = _rank_errors(workdir, n_devices)
+                    raise TimeoutError(f"{n_devices} ranks did not finish in {timeout} s; "
+                                       f"{len(errors)} failed before\n" + "\n".join(errors))
         except (torch.multiprocessing.ProcessRaisedException,
                 torch.multiprocessing.ProcessExitedException) as e:
-            errors = [f"rank {r}:\n{open(path).read()}" for r in range(n_devices)
-                      if os.path.exists(path := os.path.join(workdir, f"error_{r}.txt"))]
+            errors = _rank_errors(workdir, n_devices)
             raise RuntimeError(f"{len(errors)} of {n_devices} ranks failed\n"
                                + "\n".join(errors or [str(e)])) from e
         return [torch.load(os.path.join(workdir, f"result_{r}.pt"),

@@ -113,9 +113,11 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """An AST scan of every source of the port and of chip_smoke.py: no
+    """An AST scan of every source of the port, of chip_smoke.py and of the
+    numpy maker of its full-width inputs (scripts/full_width_inputs.py): no
     import of jax, flax or dino_tracker_tpu (lazy ones included)."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "full_width_inputs.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dino_tracker_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30

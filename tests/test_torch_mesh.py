@@ -10,6 +10,8 @@ spawn carries its own timeout. The spawned ranks import this module, so it
 imports JAX only inside a test.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -81,6 +83,16 @@ def _fail_on_rank_1(mesh):
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails")
     mesh_lib.barrier(mesh)
+
+
+def _fail_on_rank_1_then_hang(mesh):
+    """Rank 1 raises and never exits, as a rank does whose NCCL teardown
+    waits for peers blocked in a collective it left; rank 0 waits."""
+    if mesh.rank == 1:
+        import torch.distributed as dist
+        dist.destroy_process_group = lambda *a, **k: time.sleep(120)
+        raise RuntimeError("rank 1 fails and hangs")
+    time.sleep(120)
 
 
 @pytest.fixture(scope="module", params=[2, 3])
@@ -155,6 +167,11 @@ def test_cross_rank_batchnorm_matches_one_device(ranks):
 def test_a_failing_rank_fails_spawn():
     with pytest.raises(Exception, match="rank 1 fails"):
         mesh_lib.spawn(_fail_on_rank_1, 2, "cpu", timeout=SPAWN_TIMEOUT)
+
+
+def test_a_timeout_names_the_ranks_that_failed_before_it():
+    with pytest.raises(TimeoutError, match="(?s)1 failed before.*rank 1 fails and hangs"):
+        mesh_lib.spawn(_fail_on_rank_1_then_hang, 2, "cpu", timeout=10)
 
 
 def test_fewer_cards_than_ranks_raise(monkeypatch):

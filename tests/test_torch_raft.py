@@ -319,6 +319,22 @@ def test_load_raft_state_dict_layouts(tmp_path):
         praft.load_raft_state_dict(sd, "cpu")
 
 
+def test_load_raft_state_dict_takes_a_published_checkpoints_norm3():
+    """princeton-vl's strided batch-norm blocks register their downsample BN
+    twice, as ``norm3`` and ``downsample.1``, so a published raft-things.pth
+    holds ``cnet.layer{2,3}.0.norm3.*`` too. The JAX converter never reads
+    them; the port loads such a dict to the same model (it raised on the
+    unexpected keys before)."""
+    ref = praft.RAFT()
+    sd = {f"module.{k}": v for k, v in ref.state_dict().items()}
+    for k in [k for k in sd if k.startswith("module.cnet.") and ".downsample.1." in k]:
+        sd[k.replace(".downsample.1.", ".norm3.")] = sd[k].clone()
+    assert sum(".norm3." in k for k in sd) == 10
+    model = praft.load_raft_state_dict(sd, "cpu")
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, ref.state_dict()[k], rtol=0, atol=0)
+
+
 def test_corr_lookup_dispatch():
     """CPU tensors take the plain version without touching K3; the kernel's
     wrapper refuses a CPU tensor uncounted; another device raises."""

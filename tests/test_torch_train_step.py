@@ -4,7 +4,9 @@ the training CLI followed by the inference CLI on a tiny video directory.
 
 The full step recomposes the JAX body of ``make_train_step``
 (dino_tracker_tpu/training/train.py:113-181) from the package's public
-functions and differentiates it with ``jax.grad``; the port runs
+functions and differentiates it with ``jax.grad`` (``jax_step`` of
+scripts/gen_full_width_golden.py, which also makes the full-width
+golden of the step); the port runs
 ``train.step_losses`` and ``backward``. Both get the same weights (numpy,
 JAX layout, carried over by ``convert.state_from_jax``) and the same
 injected batch, cycle data and contrastive frame pairs, with full-take
@@ -35,9 +37,9 @@ the f32 case checks the algorithm.
 import dataclasses
 import functools
 import os
+import sys
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -45,10 +47,7 @@ import torch
 from PIL import Image
 
 from dino_tracker_tpu.config import TrainConfig
-from dino_tracker_tpu.models import tracker as jtracker
-from dino_tracker_tpu.training import contrastive as jcl
 from dino_tracker_tpu.training import cycle as jcycle
-from dino_tracker_tpu.training import losses as jlosses
 from dino_tracker_tpu.training import train as jtrain
 from dino_tracker_tpu.utils import video_io
 from dino_tracker_tpu_torch import convert
@@ -60,6 +59,10 @@ from dino_tracker_tpu_torch.training import cycle, sampler
 from dino_tracker_tpu_torch.training import train
 from test_torch_model_slice import H, W, configs, torch_model
 from test_torch_train_losses import N_FEAT, weights
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "scripts"))
+from gen_full_width_golden import jax_step  # noqa: E402
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,78 +141,6 @@ def injected(data, seed=1):
     return sample, cyc, dino_pairs, ref_pairs
 
 
-def jax_step(params, stats, arrays, sample, cyc, dino_pairs, ref_pairs, cfg,
-             jcfg):
-    """The JAX loss_fn of make_train_step with the random parts injected, for
-    both phases: {gates: (metrics, grads, new batch stats)}. Every term is
-    computed once; the phase with the gates off drops the cycle and
-    refined-buddy terms from the total (the other terms do not depend on
-    them), so one compiled program serves both phases."""
-    video, dino, masks, _, bb = arrays
-    jbb = jtrain.BBData(**{k: jnp.asarray(v) for k, v in bb.items()})
-    dino_cl = jnp.transpose(jnp.asarray(dino), (0, 2, 3, 1))  # to_channels_last
-    frames_set_t = jnp.asarray(sample.frames_set_t.numpy())
-    inp = jtracker.TrackerInput(jnp.asarray(sample.t1_points.numpy()),
-                                jnp.asarray(sample.source_frame_indices.numpy()),
-                                jnp.asarray(sample.target_frame_indices.numpy()),
-                                frames_set_t)
-    labels = jnp.asarray(sample.t2_points_normalized.numpy()[:, :2])
-    cyc_data = jcycle.CycleData(*map(jnp.asarray, cyc))
-    key = jax.random.PRNGKey(0)
-
-    def terms(p):
-        refined, _, raw, new_stats = jtracker.get_refined_embeddings(
-            p, stats, jnp.asarray(video), dino_cl, frames_set_t, jcfg,
-            train=True, channels_last=True)
-        view = jtracker.make_frame_view(refined, jnp.dtype(jcfg.compute_dtype),
-                                        channels_last=True)
-        coords = jtracker.get_point_predictions(p, inp, refined, jcfg,
-                                                view=view, channels_last=True)
-        cl = dict(n_pairs=cfg.cl_n_frames, points_per_pair=cfg.cl_points_per_pair,
-                  fg_points_ratio=cfg.cl_fg_points_ratio, temp=cfg.cl_temp,
-                  view=view, channels_last=True)
-        m = {"loss_of": jnp.mean(jlosses.huber(coords, labels)),
-             "loss_cyc": jcycle.cycle_consistency_loss(
-                 p, refined, frames_set_t, cyc_data, jcfg, cfg.cyc_gamma,
-                 view=view, group_size=cfg.cyc_batch_size_per_frame,
-                 channels_last=True),
-             "loss_cl_refiner": jcl.refined_bb_contrastive_loss(
-                 key, refined, frames_set_t, jnp.asarray(masks), jcfg,
-                 cl_div=cfg.cl_div_ref_bb, pair_sel=ref_pairs, **cl),
-             "loss_cl_dino_bb": jcl.dino_bb_contrastive_loss(
-                 key, refined, frames_set_t, jbb, jnp.asarray(masks), jcfg,
-                 cl_div=cfg.cl_div_dino_bb, sig_a=cfg.bb_amb_sig_a,
-                 sig_b=cfg.bb_amb_sig_b, pair_sel=dino_pairs, **cl),
-             "loss_emb_norm_reg": jlosses.emb_norm_regularization(
-                 refined, raw, channels_last=True),
-             "loss_angle_reg": jlosses.emb_angle_regularization(
-                 refined, raw, channels_last=True)}
-        return m, new_stats
-
-    def total(m, gates):
-        t = (m["loss_of"] + cfg.lambda_cl_dino_bb * m["loss_cl_dino_bb"]
-             + cfg.lambda_emb_norm * m["loss_emb_norm_reg"]
-             + cfg.lambda_angle * m["loss_angle_reg"])
-        if gates:
-            t = (t + cfg.lambda_cyc * m["loss_cyc"]
-                 + cfg.lambda_cl_ref_bb * m["loss_cl_refiner"])
-        return t
-
-    @jax.jit
-    def both(p):
-        m, vjp, new_stats = jax.vjp(terms, p, has_aux=True)
-        out = {}
-        for gates in (False, True):
-            ct = jax.grad(lambda mm: total(mm, gates))(m)
-            mg = dict(m, loss_total=total(m, gates))
-            if not gates:
-                mg.update(loss_cyc=jnp.asarray(0.0), loss_cl_refiner=jnp.asarray(0.0))
-            out[gates] = (mg, vjp(ct)[0], new_stats)
-        return out
-
-    return both(params)
-
-
 @functools.lru_cache(maxsize=None)
 def jax_reference(compute_dtype):
     """The JAX step of ``test_train_step_matches_jax``'s inputs, both phases,
@@ -218,7 +149,12 @@ def jax_reference(compute_dtype):
     jcfg, _ = configs(CHANNELS, compute_dtype)
     params, stats = weights(20)
     arrays = video_arrays()
-    return jax_step(params, stats, arrays, *injected(port_data(arrays)), cfg, jcfg)
+    video, dino, masks, _, bb = arrays
+    sample, cyc, dino_pairs, ref_pairs = injected(port_data(arrays))
+    return jax_step(params, stats, {"video": video, "dino": dino, "masks": masks, "bb": bb},
+                    {k: v.numpy() for k, v in sample._asdict().items()},
+                    dict(zip(jcycle.CycleData._fields, cyc)), dino_pairs, ref_pairs, cfg,
+                    jcfg)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
