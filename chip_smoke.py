@@ -6,8 +6,6 @@
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
     python3 chip_smoke.py --train-only   # phases 1, 2 (K1) and 5 only
-    python3 chip_smoke.py --mesh-devices 4 --train-only   # phases 1, 2 (K1) and
-                                             # phase 12's train chunks on phase 5's data
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -142,7 +140,12 @@ Phases, one line or more each (any failure raises and exits non-zero):
      --e2e-frames N alone: one video of N frames, K iterations (default
      TrainConfig's 10,000, gates at K/2, checkpoints every K/4), a query
      frame every 5 frames with 256 points each.
-  12. multi-device (parallel/mesh.py): with two or more cards, K1-fwd,
+  12. multi-device (parallel/mesh.py): first, on the one card and with no
+     mesh, phase 5's comparison of 25 replays against 25 eager steps under
+     its rule (train_chunks) on phase 11's video 0 directory, with the bf16
+     config of its train.yaml and the Trainer's init: the data, config and
+     state every NCCL rank below runs its chunks on, printed as phase 5's.
+     Then, with two or more cards, K1-fwd,
      K1-bwd, K2 and K3 launched on cuda:1 from this process (cuda:0 current),
      each against its plain version (one card: a line says it did not run).
      Then cli.train and cli.inference_benchmark with --devices 2
@@ -280,6 +283,10 @@ CHUNK_STEPS, CHUNK_TOL_FACTOR = 25, 4.0
 # kernels' scale is a null direction); a step too many or too few moves every
 # change by ~4%
 CHUNK_LOSS_FLOOR, CHUNK_CHANGE_FLOOR = 1e-4, 1e-3
+# the loss terms the cycle filter's kept points enter: a point at the filter's
+# 4 px threshold lands on either side in two valid runs and moves them at that
+# step by about 1/n of the cycle term (n points kept); ``cycle_flips``
+CYCLE_TERMS = ("loss_cyc", "loss_total")
 # the compared chunks start at this schedule count, so they cross
 # apply_scheduler_every = 40
 CHUNK_START = 30
@@ -341,8 +348,6 @@ MESH_TIMED_STEPS = 5  # warm bf16 steps timed under each set of gates
 # seconds after which a rank in phase 12's train chunks prints its Python
 # stack, and every as many seconds again, until the chunks end
 MESH_STACK_DUMP_S = 180
-# --mesh-devices N --train-only: the ranks' time limit (about 2 min needed)
-MESH_CHUNKS_TIMEOUT_S = 200
 # the capture that fails on rank 1: the ranks' time limit (under a minute
 # needed); a rank still running at half of it prints its stack
 MESH_FAILURE_TIMEOUT_S = 150
@@ -688,13 +693,15 @@ def make_train_data(video, dino, dev, seed, bb_cap=BB_CAP,
 
 
 class StepRecorder:
-    """Test-only wrappers of ``train.sample_batch`` and ``train.step_losses``
-    (patched in while the recorder is entered): each step's batch
-    (``frames_set_t``, source and target frame indices), loss terms and
-    DeltaDINO learning rate (read from ``lr``, the schedule's device tensor)
-    go to row i of device buffers, i counted on the device, so a captured
-    step records every replay (a graph replayed past n steps overwrites the
-    first rows)."""
+    """Test-only wrappers of ``train.sample_batch``, ``train.step_losses``
+    and ``cycle.cycle_data_from_points`` (patched in while the recorder is
+    entered): each step's batch (``frames_set_t``, source and target frame
+    indices), loss terms, DeltaDINO learning rate (read from ``lr``, the
+    schedule's device tensor) and cycle filter (each drawn point's validity
+    before the filter, its cycle distance and whether it was kept) go to row
+    i of device buffers, i counted on the device, so a captured step records
+    every replay (a graph replayed past n steps overwrites the first
+    rows)."""
 
     def __init__(self, n, cfg, dev, lr):
         from dino_tracker_tpu_torch.training import train
@@ -705,6 +712,10 @@ class StepRecorder:
         self.src, self.tgt = long(cfg.train_batch_size), long(cfg.train_batch_size)
         self.losses = torch.zeros((n, len(train.METRICS)), device=dev)
         self.lrs = torch.zeros(n, device=dev)
+        p = cfg.cyc_n_frames * cfg.cyc_batch_size_per_frame
+        self.drawn = torch.zeros((n, p), dtype=torch.bool, device=dev)
+        self.kept = torch.zeros((n, p), dtype=torch.bool, device=dev)
+        self.dists = torch.zeros((n, p), device=dev)
 
     def sample_batch(self, *args, **kwargs):
         s = self._sample(*args, **kwargs)
@@ -712,6 +723,15 @@ class StepRecorder:
                        (self.tgt, s.target_frame_indices)):
             buf.index_copy_(0, self.i, x[None])
         return s
+
+    def cycle_data_from_points(self, model, emb, frames, cfg, src_sel, tgt_sel, coords,
+                               valid, *args, **kwargs):
+        out = self._cycle(model, emb, frames, cfg, src_sel, tgt_sel, coords, valid,
+                          *args, **kwargs)
+        for buf, x in ((self.drawn, valid.reshape(-1)), (self.kept, out.valid),
+                       (self.dists, out.dists)):
+            buf.index_copy_(0, self.i, x[None])
+        return out
 
     def step_losses(self, *args, **kwargs):
         total, metrics = self._losses(*args, **kwargs)
@@ -722,12 +742,16 @@ class StepRecorder:
         return total, metrics
 
     def __enter__(self):
-        self._sample, self._losses = self.train.sample_batch, self.train.step_losses
-        self.train.sample_batch, self.train.step_losses = self.sample_batch, self.step_losses
+        train, cycle = self.train, self.train.cycle
+        self._sample, self._losses = train.sample_batch, train.step_losses
+        self._cycle = cycle.cycle_data_from_points
+        train.sample_batch, train.step_losses = self.sample_batch, self.step_losses
+        cycle.cycle_data_from_points = self.cycle_data_from_points
         return self
 
     def __exit__(self, *exc):
         self.train.sample_batch, self.train.step_losses = self._sample, self._losses
+        self.train.cycle.cycle_data_from_points = self._cycle
 
 
 def traced(fn):
@@ -847,16 +871,93 @@ def spread_rows(names, got, eager, base=None, floor=CHUNK_CHANGE_FLOOR):
     return rows
 
 
+def cycle_flips(got, eager, thresh):
+    """The steps at which the graph's cycle filter kept another set of points
+    than every eager run did (``StepRecorder``'s cycle buffers of the graph
+    run ``got`` and the ``eager`` runs) -> (those steps, every such step
+    explained, a line). A step is explained where each point kept otherwise
+    lies at the ``thresh`` px threshold within the runs' noise: its cycle
+    distance in the graph within CHUNK_TOL_FACTOR times the eager runs' own
+    spread of it (the largest distance between two of them) plus
+    CHUNK_LOSS_FLOOR of the threshold, of their median; kept on one side,
+    dropped on the other, it lies at the threshold in both. The points
+    drawn and valid before the filter must be equal in every run at every
+    step."""
+    runs = [got, *eager]
+    drawn = [r.drawn.cpu() for r in runs]
+    kept = [r.kept.cpu() for r in runs]
+    dists = [r.dists.double().cpu() for r in runs]
+    same_drawn = all(torch.equal(d, drawn[0]) for d in drawn[1:])
+    if not bool(drawn[0].any()):
+        return [], same_drawn, "cycle filter: not run"
+    steps, shown, ok, worst = [], [], same_drawn, 0.0
+    for k in range(len(kept[0])):
+        if any(torch.equal(kept[0][k], e[k]) for e in kept[1:]):
+            continue
+        steps.append(k)
+        moved = torch.zeros_like(kept[0][k])
+        for e in kept[1:]:
+            moved |= kept[0][k] != e[k]
+        d = torch.stack([x[k][moved] for x in dists[1:]])
+        spread = (d[:, None] - d[None]).abs().amax((0, 1))
+        err = (dists[0][k][moved] - d.median(0).values).abs()
+        bound = CHUNK_TOL_FACTOR * spread + CHUNK_LOSS_FLOOR * thresh
+        ok &= bool((err <= bound).all())
+        worst = max(worst, float((err / bound).max()))
+        shown += [f"step {k} point {int(p)}: graph {float(dists[0][k][p]):.9g}, eager "
+                  + " ".join(f"{float(x[k][p]):.9g}" for x in dists[1:])
+                  for p in moved.nonzero().flatten()[:4]]
+    among = sum(not all(torch.equal(kept[1][k], e[k]) for e in kept[2:])
+                for k in range(len(kept[0])))
+    line = (f"cycle filter: points drawn {'equal' if same_drawn else 'NOT equal'} in every "
+            f"run; kept sets of the graph other than every eager run's at steps {steps}")
+    if steps:
+        line += (f", each point kept otherwise at {thresh:g} px within {worst:.3g} of its "
+                 f"bound ({'; '.join(shown)})")
+    return steps, ok, line + f"; the eager runs' kept sets differ at {among} steps"
+
+
+def loss_rules(got, eager, thresh):
+    """The loss terms' rule on ``StepRecorder``s of the graph run and the
+    eager runs: every term's series of step values under ``spread_rows``
+    (floor CHUNK_LOSS_FLOOR of the term), those of CYCLE_TERMS without the
+    steps at which the graph's cycle filter kept other points than every
+    eager run, each such step explained by ``cycle_flips`` -> (the cycle
+    filter's (ok, line), the losses' ``spread_summary``, the rows over every
+    step, the rows as held)."""
+    from dino_tracker_tpu_torch.training.train import METRICS
+    flips, flips_ok, flips_line = cycle_flips(got, eager, thresh)
+    steady = [k for k in range(len(got.losses)) if k not in flips]
+    series = lambda rec, cut: [x[steady] if cut and name in CYCLE_TERMS else x
+                               for name, x in zip(METRICS, rec.losses.T)]
+    rows = [spread_rows(METRICS, series(got, cut), [series(r, cut) for r in eager],
+                        floor=CHUNK_LOSS_FLOOR) for cut in (False, True)]
+    return (flips_ok, flips_line), spread_summary("losses", rows[1]), *rows
+
+
 def spread_summary(kind, rows):
     """(every tensor passed, a line on the worst one: its error, its spread
-    and its bound, each over the scale of its change)."""
+    and its bound, each over the scale of its change; where one missed, the
+    line then lists every row, absolute, so that a miss names its
+    tensors)."""
     ratio = lambda r: r[1] / r[3] if r[3] > 0 else (0.0 if r[1] == 0 else math.inf)
     worst = max(rows, key=ratio)
     rel = lambda v: f"{v / worst[4]:.3g}" if worst[4] > 0 else f"{v:.3g} (abs)"
-    return all(r[1] <= r[3] for r in rows), (
-        f"{kind}: {sum(r[1] <= r[3] for r in rows)}/{len(rows)} within, worst "
-        f"{worst[0]} at {ratio(worst):.3g} of its bound (error {rel(worst[1])}, spread "
-        f"{rel(worst[2])}, bound {rel(worst[3])} of its scale {worst[4]:.3g})")
+    ok = all(r[1] <= r[3] for r in rows)
+    line = (f"{kind}: {sum(r[1] <= r[3] for r in rows)}/{len(rows)} within, worst "
+            f"{worst[0]} at {ratio(worst):.3g} of its bound (error {rel(worst[1])}, spread "
+            f"{rel(worst[2])}, bound {rel(worst[3])} of its scale {worst[4]:.3g})")
+    if not ok:
+        line += f" [every row: {rows_line(rows)}]"
+    return ok, line
+
+
+def rows_line(rows):
+    """Every row of ``spread_rows``: name, error, spread, bound and scale,
+    absolute, a miss marked."""
+    return "name error spread bound scale: " + ", ".join(
+        f"{r[0]}{'' if r[1] <= r[3] else ' MISSED'} {r[1]:.4g} {r[2]:.4g} {r[3]:.4g} "
+        f"{r[4]:.4g}" for r in rows)
 
 
 def params_summary(names, got, eager, base, steps, lr):
@@ -889,6 +990,25 @@ def from_state(state, names):
     return [state["model"][n] for n in names]
 
 
+def memory_line(dev):
+    """This process's view of the card: free and total memory (all
+    processes), reserved and allocated by this process, in GiB."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return (f"card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB, this process "
+            f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f}, allocated "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f}")
+
+
+def loss_series(names, rows, got, eager):
+    """Each missed loss term's values step by step: the graph's, then eager
+    A's, B's and C's."""
+    fmt = lambda x: " ".join(f"{float(v):.6g}" for v in x)
+    return "; ".join(
+        f"{name} per step: graph [{fmt(got[j])}], " + ", ".join(
+            f"eager {k} [{fmt(r[j])}]" for k, r in zip("ABC", eager))
+        for j, (name, row) in enumerate(zip(names, rows)) if row[1] > row[3])
+
+
 def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     """The train step as the Trainer runs it on the card (or on this rank of
     an NCCL ``mesh``): a chunk of CHUNK_STEPS (TrainConfig.steps_per_call)
@@ -907,10 +1027,16 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     C is within CHUNK_TOL_FACTOR times their largest distance between two of
     them, plus a floor: CHUNK_CHANGE_FLOOR of the parameters' and
     statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
-    (``spread_rows``, ``params_summary``); no host sync under
+    (``spread_rows``, ``params_summary``; CYCLE_TERMS without the steps at
+    which the graph's cycle filter kept other points than every eager run,
+    each explained by ``cycle_flips``, ``loss_rules``); no host sync under
     torch.cuda.set_sync_debug_mode("error") over a replayed chunk; the card
-    ran K1-fwd and K1-bwd 3 times each a replay in a trace. Measured: in
-    turns (graph, eager, eager, graph chunks; host clock, synchronised)
+    ran K1-fwd and K1-bwd 3 times each a replay in a trace. A miss names
+    every row of the summary that missed and, for a loss term, its values
+    step by step in the graph and in eager A-C; on a mesh each rank prints
+    its free and reserved memory before each capture and at each verdict,
+    and every rank raises with every rank's misses (``mesh.agree``).
+    Measured: in turns (graph, eager, eager, graph chunks; host clock, synchronised)
     ms/iter and peak memory of each; then TRACE_STEPS steps of each under
     torch.profiler: the card's busy share and NCCL's share of the device
     time. -> {gates: {"rule": the verdicts' line, "lr_step", "capture_ms",
@@ -967,6 +1093,7 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             torch.cuda.reset_peak_memory_stats()
             with StepRecorder(CHUNK_STEPS, cfg, dev, runner.sched.lr) as rec:
                 if name == "graph":  # the warm-up step and the capture, then replays
+                    note(f"before the capture: {memory_line(dev)}")
                     ms = chunk(runner, gates, True, 1)
                     chunk(runner, gates, True, CHUNK_STEPS - 1)
                 else:
@@ -978,6 +1105,8 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 kept[name] = runner
             del model, runner
         a, g = runs["eager A"], runs["graph"]
+        reserved = torch.cuda.memory_reserved(dev)
+        note(f"the verdict: {memory_line(dev)}")
         # every rank learns of any rank's miss or fault before the next collective
         misses = []
         try:
@@ -997,11 +1126,11 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 misses.append(f"the schedule inside the graph: rates {lrs}, expected {want}, "
                               f"count {g[5]}")
             eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
-            loss_rows = spread_rows(train.METRICS, list(g[0].losses.T),
-                                    [list(r[0].losses.T) for r in eager], floor=CHUNK_LOSS_FLOOR)
+            filtered, losses_held, every_step, loss_rows = loss_rules(
+                g[0], [r[0] for r in eager], cfg.cyc_thresh)
             bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
                                   from_state(start, b_names))
-            verdicts = [spread_summary("losses", loss_rows),
+            verdicts = [filtered, losses_held,
                         params_summary(p_names, g[1], [r[1] for r in eager],
                                        from_state(start, p_names), CHUNK_STEPS,
                                        cfg.lr_cnn_refiner),
@@ -1009,6 +1138,9 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             if not all(v[0] for v in verdicts):
                 misses.append("the graph disagrees with the eager steps: "
                               + "; ".join(v[1] for v in verdicts if not v[0]))
+                if not losses_held[0]:
+                    misses.append(loss_series(train.METRICS, loss_rows, list(g[0].losses.T),
+                                              [list(r[0].losses.T) for r in eager]))
         except Exception:  # a fault of this rank's checks, reported on every rank
             misses.append(traceback.format_exc())
         mesh_lib.agree("; ".join(misses) or None, None, mesh,
@@ -1034,8 +1166,9 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
              f"{peaks[True]} / {peaks[False]} B, capture {g[3]:.1f} ms")
         results[gates] = dict(
             rule=("; ".join(v[1] for v in verdicts)), lr_step=lrs[cross] / lrs[cross - 1],
-            capture_ms=g[3], peak_capture=g[4], peak_eager_a=a[4], times=times,
-            peaks=peaks, digest=digest.hexdigest(),
+            loss_rows=(rows_line(every_step), rows_line(loss_rows)),
+            capture_ms=g[3], peak_capture=g[4], peak_eager_a=a[4], reserved=reserved,
+            times=times, peaks=peaks, digest=digest.hexdigest(),
             # the graph writes into its recorder's buffers: they live as long
             runners=(graph, eager, runs["graph"][0]))
         del kept, runs
@@ -1058,13 +1191,12 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     return results
 
 
-def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
-    """``train_chunks`` on the one card, printed; then a step with an
-    .item() injected must fail capture and raise, naming the line."""
-    from dino_tracker_tpu_torch.training import train
-    for gates, r in train_chunks(dev, trainer, cfg, tcfg, data).items():
+def print_chunks(results, cfg, smi, what="train chunks"):
+    """``train_chunks``'s results on one card, two lines for each set of
+    gates, each line starting with ``what``."""
+    for gates, r in results.items():
         on = "on" if gates else "off"
-        print(f"train chunks, gates {on}: {CHUNK_STEPS} replays vs "
+        print(f"{what}, gates {on}: {CHUNK_STEPS} replays vs "
               f"{CHUNK_STEPS} eager steps from one state at count {CHUNK_START}: batches "
               f"and learning rates equal (the rate x{r['lr_step']:.6f} at count "
               f"{cfg.apply_scheduler_every}), consecutive batches differ; each tensor's "
@@ -1074,7 +1206,7 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
               f"ms, peak allocated {r['peak_capture'] / 2**30:.2f} GiB (eager A "
               f"{r['peak_eager_a'] / 2**30:.2f})", flush=True)
         times, peaks, busy = r["times"], r["peaks"], r["busy"]
-        print(f"train chunks, gates {on}: a replayed chunk under "
+        print(f"{what}, gates {on}: a replayed chunk under "
               f"set_sync_debug_mode('error'): no sync; in turns (graph, eager, eager, graph; "
               f"{CHUNK_STEPS} steps each): graphed {', '.join(f'{t:.2f}' for t in times[True])} "
               f"ms/iter, eager {', '.join(f'{t:.2f}' for t in times[False])} ms/iter; peak "
@@ -1084,6 +1216,17 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
               f"ms/iter, the card busy {busy[True][1]:.4f} of it (K1-fwd and K1-bwd ran "
               f"{3 * TRACE_STEPS} times each in the replays), eager {busy[False][0]:.2f} "
               f"ms/iter, busy {busy[False][1]:.4f} [{smi}]", flush=True)
+        every_step, steady = r["loss_rows"]
+        print(f"{what}, gates {on}: loss rows over every step (the rule before "
+              f"{', '.join(CYCLE_TERMS)} left out the steps where the graph's cycle filter "
+              f"kept other points) {every_step}; as held {steady}", flush=True)
+
+
+def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
+    """``train_chunks`` on the one card, printed; then a step with an
+    .item() injected must fail capture and raise, naming the line."""
+    from dino_tracker_tpu_torch.training import train
+    print_chunks(train_chunks(dev, trainer, cfg, tcfg, data), cfg, smi)
 
     # a step that syncs: the capture raises and names the line
     model = trainer.init_model().train()
@@ -2643,42 +2786,37 @@ def mesh_equality(mesh, data_path, train_yaml, device_type="cuda"):
     return out
 
 
-def phase5_trainer(mesh):
-    """A rank's Trainer on phase 5's data (made on the card from a seed) at
-    TrainConfig's full width -> (trainer, cfg, tcfg, data)."""
-    from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
-    from dino_tracker_tpu_torch.training import train
-    dev = mesh.device
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TrainConfig()
-    tcfg = TrackerConfig(video_h=H, video_w=W, delta_channels=CHANNELS,
-                         compute_dtype=cfg.compute_dtype)
-    video, dino = make_inputs(T, H, W, CHANNELS[-1], tcfg.feat_hw, dev, 1)
-    data = make_train_data(video, dino, dev, 5)
-    trainer = train.Trainer(cfg, tcfg, data, "", seed=2, device=dev, mesh=mesh)
-    return trainer, cfg, tcfg, data
+def capture_failure_on_rank_1(mesh, data_path, train_yaml):
+    """``sync_on_rank_1`` on a preprocessed directory's data."""
+    return sync_on_rank_1(mesh, *dir_trainer(mesh.device, data_path, train_yaml, mesh))
 
 
-def capture_failure_on_rank_1(mesh, data_path=None, train_yaml=None):
-    """``sync_on_rank_1`` on a preprocessed directory's data, or with no
-    directory on phase 5's."""
-    if data_path is None:
-        return sync_on_rank_1(mesh, *phase5_trainer(mesh))
+def dir_trainer(dev, data_path, train_yaml, mesh=None):
+    """A Trainer (seed 2) on a preprocessed directory's artifacts at
+    ``train_yaml``'s config (its bf16 default), on ``dev`` or this rank of
+    ``mesh`` -> (trainer, cfg, tcfg, data)."""
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.config import TrainConfig
     from dino_tracker_tpu_torch.training import train
     cfg = TrainConfig.from_yaml(train_yaml)
-    rt = runtime.DINOTrackerRuntime(data_path, cfg, mesh.device, mesh=mesh)
-    data, tcfg = rt.load_video_data(), rt.tcfg
-    trainer = train.Trainer(cfg, tcfg, data, "", seed=2, device=mesh.device, mesh=mesh)
-    return sync_on_rank_1(mesh, trainer, cfg, tcfg, data)
+    rt = runtime.DINOTrackerRuntime(data_path, cfg, dev, mesh=mesh)
+    data = rt.load_video_data()
+    trainer = train.Trainer(cfg, rt.tcfg, data, "", seed=2, device=dev, mesh=mesh)
+    return trainer, cfg, rt.tcfg, data
 
 
-def mesh_train_chunks(mesh):
-    """``--mesh-devices N --train-only`` on each rank: phase 12's train
-    chunks (``train_chunks``) on phase 5's data at full width."""
-    trainer, cfg, tcfg, data = phase5_trainer(mesh)
-    return {"chunks": train_chunks(mesh.device, trainer, cfg, tcfg, data, mesh)}
+def phase_dir_chunks(dev, data_path, train_yaml, smi):
+    """Phase 12's one-card train chunks: ``train_chunks`` with no mesh on a
+    preprocessed directory (phase 11's video 0), the data, config and init
+    every NCCL rank of phase 12 runs its chunks on, printed as phase 5's."""
+    t0 = time.perf_counter()
+    trainer, cfg, tcfg, data = dir_trainer(dev, data_path, train_yaml)
+    print_chunks(train_chunks(dev, trainer, cfg, tcfg, data), cfg, smi,
+                 f"train chunks on one card, {os.path.relpath(data_path, REPO_DIR)}'s artifacts")
+    del trainer, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train chunks on one card: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def report_capture_failure(raised):
@@ -2989,7 +3127,8 @@ def mesh_chunks_report(ranks, how, smi):
                  f"{own(r['busy'][False]):.4f}), warm-up step and capture "
                  f"{r['capture_ms']:.1f} ms, peak allocated replaying "
                  f"{r['peaks'][True] / 2**30:.2f} GiB, eager {r['peaks'][False] / 2**30:.2f}"
-                 f" GiB" for k, r in enumerate(rows)]
+                 f" GiB, reserved at the verdict {r['reserved'] / 2**30:.2f} GiB; {r['rule']}"
+                 for k, r in enumerate(rows)]
         slow = lambda f: max(f(r) for r in rows)
         lines.append(
             f"slowest rank: replayed {slow(lambda r: np.mean(r['times'][True])):.2f}, "
@@ -3001,8 +3140,8 @@ def mesh_chunks_report(ranks, how, smi):
             f"{slow(lambda r: r['capture_ms']):.1f} ms")
         print(f"mesh: train chunks, {how}, gates {'on' if gates else 'off'}: on every rank "
               f"{CHUNK_STEPS} replays vs {CHUNK_STEPS} eager steps from one state at count "
-              f"{CHUNK_START}, batches and rates equal, every tensor within phase 5's rule "
-              f"(rank 0: {rows[0]['rule']}); the replicas bitwise equal after the replays; "
+              f"{CHUNK_START}, batches and rates equal, every tensor within phase 5's rule; "
+              f"the replicas bitwise equal after the replays; "
               f"K1-fwd and K1-bwd {3 * TRACE_STEPS} each in {TRACE_STEPS} traced replays on "
               f"every rank; in turns (graph, eager, eager, graph; {CHUNK_STEPS} steps each): "
               + "; ".join(lines) + f" [{smi}]", flush=True)
@@ -3561,9 +3700,7 @@ def main():
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--train-only", action="store_true",
-                    help="run only the K1 build and the training slice (phase 5); with "
-                         "--mesh-devices N, phase 12's train chunks on N ranks on "
-                         "phase 5's data")
+                    help="run only the K1 build and the training slice (phase 5)")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run only the kernel builds, the launches on cuda:1 and "
                          "phases 13 and 12 with this many ranks, one card each over "
@@ -3630,16 +3767,6 @@ def main():
                                raft_path, "--dino-checkpoint", vit_path], n, False, smis, t)
         print_ok()
         return
-    if args.mesh_devices and args.train_only:  # phase 12's train chunks alone
-        from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
-        build_kernels([("blurpool.cu", bp)])
-        ranks = mesh_lib.spawn(mesh_train_chunks, n, "cuda", timeout=MESH_CHUNKS_TIMEOUT_S)
-        mesh_chunks_report(ranks, f"{n} ranks on cuda:0..{n - 1} over NCCL, phase 5's data",
-                           smis)
-        report_capture_failure(mesh_lib.spawn(capture_failure_on_rank_1, n, "cuda",
-                                              timeout=MESH_FAILURE_TIMEOUT_S))
-        print_ok()
-        return
     if args.train_only:  # the training slice alone, on phase 4's inputs
         from dino_tracker_tpu_torch.config import TrackerConfig
         build_kernels([("blurpool.cu", bp)])
@@ -3701,15 +3828,16 @@ def main():
     phase_raft_reference(dev)
     phase_bb_reference(dev)
     e2e = phase_e2e(dev, weights=weights)
+    e2e_root = os.path.join(WORK_DIR, "e2e")
+    mesh_args = (os.path.join(e2e_root, "videos", "0"), os.path.join(e2e_root, "train.yaml"),
+                 os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS)
+    phase_dir_chunks(dev, *mesh_args[:2], smi)
     if torch.cuda.device_count() >= 2:
         phase_other_card(bp, torch.device("cuda", 1))
     else:
         print("other card: not run: one CUDA device is visible, and the launches on "
               "cuda:1 from cuda:0 need two (python3 chip_smoke.py --mesh-devices N)",
               flush=True)
-    e2e_root = os.path.join(WORK_DIR, "e2e")
-    mesh_args = (os.path.join(e2e_root, "videos", "0"), os.path.join(e2e_root, "train.yaml"),
-                 os.path.join(e2e_root, "benchmark.pkl"), MESH_RANKS)
     mesh = phase_mesh(dev, *mesh_args, True, smi)
     if torch.cuda.device_count() >= MESH_RANKS:  # the captured mesh step, one card a rank
         mesh = [a + b for a, b in zip(mesh, phase_mesh(
