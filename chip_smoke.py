@@ -5,7 +5,7 @@
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
-    python3 chip_smoke.py --train-only   # phases 1, 2 (K1) and 5 only
+    python3 chip_smoke.py --train-only [--resume-faults]   # phases 1, 2 (K1) and 5 only
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -67,11 +67,25 @@ Phases, one line or more each (any failure raises and exits non-zero):
      bias within Adam's 2·lr a step), no host sync in a replayed chunk under
      set_sync_debug_mode("error"), graphed vs eager ms/iter timed in turns
      with their peak memory and 5 steps each under torch.profiler (the
-     card's busy share); then a step with an .item() injected must fail capture and
-     raise. Then the Trainer's state_30.pt, written after replays, resumed
-     to 50 three times eagerly and once in chunks of replays: the final
-     generator state, schedule count and Adam steps equal the uninterrupted
-     run's, its parameters and BN statistics within the eager spread. Then
+     card's busy share); every run's discrete choices recorded step by step
+     (the cycle filter's kept points, the head's hard argmax of every point,
+     StepRecorder), and where the graph took one no eager run took, each
+     at its threshold within the runs' noise, the parameters and BN
+     statistics held to a fourth eager run that takes the graph's choices;
+     then a step with an .item() injected must fail capture and
+     raise. The Trainer's run R is recorded from before its first capture,
+     and its state in memory where it writes state_30.pt (parameters,
+     buffers, Adam's state, the schedule, the generator, the banks) must
+     equal the file bit for bit. Then state_30.pt resumed
+     to 50 three times eagerly (E1-E3) and once in chunks of replays (S),
+     each recorded: the final generator state, schedule count and Adam
+     steps equal the uninterrupted run's, batches equal at every step, the
+     steps where R or S took a choice no eager run took printed, and R's and
+     S's parameters and BN statistics within the eager spread of E1-E3, or
+     of E_R / E_S (an eager run from the file taking R's or S's recorded
+     choices) where they took one. With --resume-faults the check then runs
+     from three planted faulty files (Adam's moments zeroed, BN statistics
+     reset, the generator of step 29) and must miss each. Then
      runtime.load_model + make_model_inference serve one 256-point request
      from state_50.pt.
   6. the ViT feature stage at full width: seeded random dinov2_vitl14 weights
@@ -216,7 +230,11 @@ Phases, one line or more each (any failure raises and exits non-zero):
      make_model_inference (T=20, refine chunks of 16: K1-fwd) and one
      256-point ModelInference.infer, f32 and bf16; e. extract_best_buddies
      with the fused flow filter, closest_trajectory_grids and
-     compute_bb_ambiguity (T=4, C=1024, 12,000 trajectories). Each stage is
+     compute_bb_ambiguity (T=4, C=1024, 12,000 trajectories); f.
+     extract_trajectories_dual on T=8 synthetic flows at 854×476 with their
+     direct flows (both passes, the native look-behind occupancy), each
+     start's keep masks, and the port's float64 recomputation of every
+     chain (the pixels within 1e-3 px of a threshold, counted). Each stage is
      held to the golden under the tolerances it records (full_width_inputs.
      TOLERANCES); the largest error of each kind is printed beside its
      bound, with the stage's seconds; any miss raises.
@@ -240,6 +258,7 @@ pipeline's mask jpgs; PyYAML only through the CLIs' configs.
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import faulthandler
 import gc
@@ -251,6 +270,7 @@ import shutil
 import subprocess
 import time
 import traceback
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -287,6 +307,17 @@ CHUNK_LOSS_FLOOR, CHUNK_CHANGE_FLOOR = 1e-4, 1e-3
 # 4 px threshold lands on either side in two valid runs and moves them at that
 # step by about 1/n of the cycle term (n points kept); ``cycle_flips``
 CYCLE_TERMS = ("loss_cyc", "loss_total")
+# the head's calls in a train step, in order (StepRecorder), each with the
+# share of its points whose query is one of the step's draws (the rest are
+# predictions of the same step): the flow term's batch, the cycle filter's
+# source -> target and target -> source, the cycle loss's sources then
+# targets; the head's tensors whose gradient norms a recorder keeps
+HEAD_CALLS = (("flow", 1.0), ("cycle filter forward", 1.0), ("cycle filter backward", 0.0),
+              ("cycle loss", 0.5))
+HEAD_TENSORS = ("tracker_head.conv1.weight", "tracker_head.conv1.bias",
+                "tracker_head.conv2.weight", "tracker_head.conv2.bias")
+RECORDED = ("frames", "src", "tgt", "losses", "lrs", "drawn", "kept", "dists", "argmax",
+            "top", "drawn_query", "head_grads")
 # the compared chunks start at this schedule count, so they cross
 # apply_scheduler_every = 40
 CHUNK_START = 30
@@ -693,19 +724,28 @@ def make_train_data(video, dino, dev, seed, bb_cap=BB_CAP,
 
 
 class StepRecorder:
-    """Test-only wrappers of ``train.sample_batch``, ``train.step_losses``
-    and ``cycle.cycle_data_from_points`` (patched in while the recorder is
-    entered): each step's batch (``frames_set_t``, source and target frame
-    indices), loss terms, DeltaDINO learning rate (read from ``lr``, the
-    schedule's device tensor) and cycle filter (each drawn point's validity
-    before the filter, its cycle distance and whether it was kept) go to row
-    i of device buffers, i counted on the device, so a captured step records
-    every replay (a graph replayed past n steps overwrites the first
-    rows)."""
+    """Test-only wrappers of ``train.sample_batch``, ``train.step_losses``,
+    ``cycle.cycle_data_from_points``, ``tracker_head.hard_argmax`` and
+    ``mesh.all_reduce_grads`` (patched in while the recorder is entered):
+    each step's batch (``frames_set_t``, source and target frame indices),
+    loss terms, DeltaDINO learning rate (read from ``lr``, the schedule's
+    device tensor; with no ``lr`` given, ``train.make_optimizer`` is wrapped
+    too and the Trainer's own schedule found), cycle filter (each drawn
+    point's validity before the filter, its cycle distance and whether it
+    was kept), the head's hard argmax of every point of every head call in
+    the step (``argmax``: the flat index; ``top``: the raw map's two
+    largest values; ``drawn_query``: whether the point's query is one of
+    the step's draws, not an earlier prediction of the same step) and the
+    L2 norm of each head tensor's gradient (``head_grads``, HEAD_TENSORS)
+    go to row i of device buffers, i counted on the device, so a captured
+    step records every replay (a graph replayed past n steps overwrites the
+    first rows)."""
 
-    def __init__(self, n, cfg, dev, lr):
+    def __init__(self, n, cfg, dev, lr=None):
+        from dino_tracker_tpu_torch.models import tracker_head
+        from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
         from dino_tracker_tpu_torch.training import train
-        self.train, self.lr = train, lr
+        self.train, self.head, self.mesh_lib, self.lr = train, tracker_head, mesh_lib, lr
         self.i = torch.zeros(1, dtype=torch.long, device=dev)
         long = lambda k: torch.full((n, k), -1, dtype=torch.long, device=dev)
         self.frames = long(2 * cfg.batch_n_frames)
@@ -716,8 +756,22 @@ class StepRecorder:
         self.drawn = torch.zeros((n, p), dtype=torch.bool, device=dev)
         self.kept = torch.zeros((n, p), dtype=torch.bool, device=dev)
         self.dists = torch.zeros((n, p), device=dev)
+        # the head's calls a step: the flow term's batch, the cycle filter's
+        # two ways and the cycle loss's both ways (HEAD_CALLS)
+        width = cfg.train_batch_size + 4 * p
+        self.argmax = long(width)
+        self.top = torch.zeros((n, width, 2), device=dev)
+        self.drawn_query = torch.zeros((n, width), dtype=torch.bool, device=dev)
+        self.head_grads = torch.zeros((n, len(HEAD_TENSORS)), device=dev)
+        self._call = self._off = 0
+
+    def make_optimizer(self, *args, **kwargs):
+        opt, sched = self._make_optimizer(*args, **kwargs)
+        self.lr = sched.lr
+        return opt, sched
 
     def sample_batch(self, *args, **kwargs):
+        self._call = self._off = 0  # a step starts
         s = self._sample(*args, **kwargs)
         for buf, x in ((self.frames, s.frames_set_t), (self.src, s.source_frame_indices),
                        (self.tgt, s.target_frame_indices)):
@@ -733,25 +787,101 @@ class StepRecorder:
             buf.index_copy_(0, self.i, x[None])
         return out
 
+    def hard_argmax(self, cost):
+        idx = self._argmax(cost)
+        b, off = idx.shape[0], self._off
+        if off + b <= self.argmax.shape[1]:
+            top = torch.topk(cost.detach().flatten(1).float(), 2, dim=1).values
+            share = HEAD_CALLS[self._call][1] if self._call < len(HEAD_CALLS) else 0.0
+            drawn = torch.arange(b, device=idx.device) < share * b
+            for buf, x in ((self.argmax, idx), (self.top, top), (self.drawn_query, drawn)):
+                buf.narrow(1, off, b).index_copy_(0, self.i, x[None])
+        self._call, self._off = self._call + 1, off + b
+        return idx
+
     def step_losses(self, *args, **kwargs):
         total, metrics = self._losses(*args, **kwargs)
         self.losses.index_copy_(0, self.i, torch.stack(
             [metrics[k] for k in self.train.METRICS])[None])
         self.lrs.index_copy_(0, self.i, self.lr.reshape(1))
-        self.i.add_(1).remainder_(len(self.losses))  # later replays wrap around
         return total, metrics
+
+    def all_reduce_grads(self, model, mesh):
+        self._reduce(model, mesh)
+        grads = dict(model.named_parameters())
+        self.head_grads.index_copy_(0, self.i, torch.stack(
+            [grads[k].grad.float().norm() if grads[k].grad is not None
+             else torch.zeros((), device=self.i.device) for k in HEAD_TENSORS])[None])
+        self.i.add_(1).remainder_(len(self.losses))  # later replays wrap around
+        return None
 
     def __enter__(self):
         train, cycle = self.train, self.train.cycle
         self._sample, self._losses = train.sample_batch, train.step_losses
-        self._cycle = cycle.cycle_data_from_points
+        self._cycle, self._argmax = cycle.cycle_data_from_points, self.head.hard_argmax
+        self._reduce, self._make_optimizer = self.mesh_lib.all_reduce_grads, train.make_optimizer
         train.sample_batch, train.step_losses = self.sample_batch, self.step_losses
         cycle.cycle_data_from_points = self.cycle_data_from_points
+        self.head.hard_argmax = self.hard_argmax
+        self.mesh_lib.all_reduce_grads = self.all_reduce_grads
+        if self.lr is None:
+            train.make_optimizer = self.make_optimizer
         return self
 
     def __exit__(self, *exc):
         self.train.sample_batch, self.train.step_losses = self._sample, self._losses
         self.train.cycle.cycle_data_from_points = self._cycle
+        self.head.hard_argmax = self._argmax
+        self.mesh_lib.all_reduce_grads = self._reduce
+        self.train.make_optimizer = self._make_optimizer
+
+    def rows(self, first, n):
+        """Rows first .. first + n - 1 of every buffer, as a namespace."""
+        return types.SimpleNamespace(**{k: getattr(self, k)[first:first + n]
+                                        for k in RECORDED})
+
+
+class FollowChoices:
+    """Test-only: while entered, an eager run takes, step by step, the cycle
+    filter's kept points and the head's hard argmax of every head call that
+    ``rec`` (``StepRecorder.rows`` of another run, one row a step) recorded,
+    in place of its own. Entered after the run's own ``StepRecorder``, which
+    then keeps the run's own choices."""
+
+    def __init__(self, rec):
+        from dino_tracker_tpu_torch.models import tracker_head
+        from dino_tracker_tpu_torch.training import train
+        self.train, self.head, self.rec = train, tracker_head, rec
+        self.k, self._off = -1, 0
+
+    def sample_batch(self, *args, **kwargs):
+        self.k, self._off = self.k + 1, 0
+        return self._sample(*args, **kwargs)
+
+    def hard_argmax(self, cost):
+        own = self._argmax(cost)
+        b = own.shape[0]
+        take = self.rec.argmax[self.k, self._off:self._off + b].to(own.device)
+        self._off += b
+        return take
+
+    def cycle_data_from_points(self, *args, **kwargs):
+        out = self._cycle(*args, **kwargs)
+        return out._replace(valid=self.rec.kept[self.k].to(out.valid.device))
+
+    def __enter__(self):
+        cycle = self.train.cycle
+        self._sample, self._cycle = self.train.sample_batch, cycle.cycle_data_from_points
+        self._argmax = self.head.hard_argmax
+        self.train.sample_batch, cycle.cycle_data_from_points = (
+            self.sample_batch, self.cycle_data_from_points)
+        self.head.hard_argmax = self.hard_argmax
+        return self
+
+    def __exit__(self, *exc):
+        self.train.sample_batch = self._sample
+        self.train.cycle.cycle_data_from_points = self._cycle
+        self.head.hard_argmax = self._argmax
 
 
 def traced(fn):
@@ -849,11 +979,12 @@ def count_syncs(fn):
     return found
 
 
-def spread_rows(names, got, eager, base=None, floor=CHUNK_CHANGE_FLOOR):
+def spread_rows(names, got, eager, base=None, floor=CHUNK_CHANGE_FLOOR, ref=None):
     """Per tensor: (name, e, s, bound, scale) with distances in the L2 norm
     (a few elements whose gradient is float noise, which Adam turns into
     full steps, would decide a largest-element distance): e the median over
-    the ``eager`` runs of |got - run|, s the eager runs' own spread (the
+    the ``eager`` runs of |got - run| (with a ``ref`` run, |got - ref|
+    alone), s the eager runs' own spread (the
     largest |run - run'| over pairs of them: index_add's atomics make every
     run differ from the first step on), scale = |eager[0] - base| (the
     change from ``base``; |eager[0]| without one) and bound =
@@ -866,27 +997,43 @@ def spread_rows(names, got, eager, base=None, floor=CHUNK_CHANGE_FLOOR):
         g = got[j].double()
         scale = dist(runs[0], 0.0 if base is None else base[j].double())
         s_j = max(dist(x, y) for k, x in enumerate(runs) for y in runs[k + 1:])
-        rows.append((name, float(np.median([dist(g, x) for x in runs])), s_j,
+        e_j = (float(np.median([dist(g, x) for x in runs])) if ref is None
+               else dist(g, ref[j].double()))
+        rows.append((name, e_j, s_j,
                      CHUNK_TOL_FACTOR * s_j + floor * scale, scale))
     return rows
 
 
-def cycle_flips(got, eager, thresh):
+def cycle_flips(got, eager, thresh, head_offset=None, judge_until=None):
     """The steps at which the graph's cycle filter kept another set of points
     than every eager run did (``StepRecorder``'s cycle buffers of the graph
     run ``got`` and the ``eager`` runs) -> (those steps, every such step
     explained, a line). A step is explained where each point kept otherwise
     lies at the ``thresh`` px threshold within the runs' noise: its cycle
-    distance in the graph within CHUNK_TOL_FACTOR times the eager runs' own
-    spread of it (the largest distance between two of them) plus
-    CHUNK_LOSS_FLOOR of the threshold, of their median; kept on one side,
-    dropped on the other, it lies at the threshold in both. The points
-    drawn and valid before the filter must be equal in every run at every
+    distance in the graph within CHUNK_TOL_FACTOR times the eager runs'
+    spread of it (the largest distance between two of them, or the median
+    of that over the step's drawn points where larger: three runs can agree
+    on one point far closer than the step's noise) plus CHUNK_LOSS_FLOOR of
+    the threshold, of their median; kept on one side, dropped on the other,
+    it lies at the threshold in both. With ``head_offset`` (the flow term's
+    batch: the cycle filter's two head calls follow it in the recorder's
+    argmax rows, one point each, as with no mesh) a point is also explained
+    where the graph's hard argmax of it in the filter's forward or backward
+    call differs from that of each eager run that kept it otherwise: its
+    distance then moved with that choice (``argmax_flips`` judges it).
+    Steps after ``judge_until`` are listed, not judged. The points drawn
+    and valid before the filter must be equal in every run at every
     step."""
     runs = [got, *eager]
     drawn = [r.drawn.cpu() for r in runs]
     kept = [r.kept.cpu() for r in runs]
     dists = [r.dists.double().cpu() for r in runs]
+    p_n = kept[0].shape[1]
+    if head_offset is not None:
+        am = [r.argmax.cpu()[:, head_offset:head_offset + 2 * p_n] for r in runs]
+        # per step and point: the argmax of either filter call differs from the graph's
+        head_moved = [((a[:, :p_n] != am[0][:, :p_n]) | (a[:, p_n:] != am[0][:, p_n:]))
+                      for a in am[1:]]
     same_drawn = all(torch.equal(d, drawn[0]) for d in drawn[1:])
     if not bool(drawn[0].any()):
         return [], same_drawn, "cycle filter: not run"
@@ -898,12 +1045,23 @@ def cycle_flips(got, eager, thresh):
         moved = torch.zeros_like(kept[0][k])
         for e in kept[1:]:
             moved |= kept[0][k] != e[k]
-        d = torch.stack([x[k][moved] for x in dists[1:]])
-        spread = (d[:, None] - d[None]).abs().amax((0, 1))
+        every = torch.stack([x[k] for x in dists[1:]])
+        sel = drawn[0][k]
+        step_noise = float((every.amax(0) - every.amin(0))[sel].median()) if sel.any() else 0.0
+        d = every[:, moved]
+        spread = (d[:, None] - d[None]).abs().amax((0, 1)).clamp(min=step_noise)
         err = (dists[0][k][moved] - d.median(0).values).abs()
         bound = CHUNK_TOL_FACTOR * spread + CHUNK_LOSS_FLOOR * thresh
-        ok &= bool((err <= bound).all())
-        worst = max(worst, float((err / bound).max()))
+        ratio = err / bound
+        if head_offset is not None:  # moved with a choice of the head
+            with_head = torch.ones_like(ratio, dtype=torch.bool)
+            for e, h in zip(kept[1:], head_moved):
+                with_head &= ~(kept[0][k] != e[k])[moved] | h[k][moved]
+            ratio = torch.where(with_head, 0.0, ratio)
+        if judge_until is not None and k > judge_until:
+            ratio = torch.zeros_like(ratio)
+        ok &= bool((ratio <= 1).all())
+        worst = max(worst, float(ratio.max()))
         shown += [f"step {k} point {int(p)}: graph {float(dists[0][k][p]):.9g}, eager "
                   + " ".join(f"{float(x[k][p]):.9g}" for x in dists[1:])
                   for p in moved.nonzero().flatten()[:4]]
@@ -917,16 +1075,87 @@ def cycle_flips(got, eager, thresh):
     return steps, ok, line + f"; the eager runs' kept sets differ at {among} steps"
 
 
-def loss_rules(got, eager, thresh):
+def argmax_flips(got, eager, judge_until=None):
+    """The head's hard argmax of the run ``got`` against the ``eager`` runs
+    (``StepRecorder`` rows of each) -> (the steps at which some point's
+    argmax in ``got`` differs from every eager run's, every such point
+    explained, a line). A point whose query is one of the step's draws is
+    explained where the raw map's two largest values lie within the runs'
+    noise, in ``got`` and in the eager runs' median: their gap within
+    CHUNK_TOL_FACTOR times the eager runs' spread of the largest value (the
+    largest, over the step's drawn queries, of the largest distance between
+    two of them) plus CHUNK_LOSS_FLOOR of that value; two cells that tie
+    within the noise go either way in valid runs. A point whose query is a
+    prediction of the same step (the cycle filter's backward, the cycle
+    loss's targets) is counted and not judged: its query moves with the
+    choice made before it. Steps after ``judge_until`` are listed, not
+    judged."""
+    am = [r.argmax.cpu() for r in (got, *eager)]
+    top = [r.top.double().cpu() for r in (got, *eager)]
+    drawn = got.drawn_query.cpu()
+    steps, ok, worst, judged_n, derived_n, shown = [], True, 0.0, 0, 0, []
+    gap = lambda t, k: t[k, :, 0] - t[k, :, 1]
+    for k in range(len(am[0])):
+        used = am[0][k] >= 0
+        moved = used.clone()
+        for e in am[1:]:
+            moved &= am[0][k] != e[k]
+        if not bool(moved.any()):
+            continue
+        steps.append(k)
+        judged = moved & drawn[k] & (judge_until is None or k <= judge_until)
+        derived_n += int((moved & ~judged).sum())
+        if not bool(judged.any()):
+            continue
+        judged_n += int(judged.sum())
+        firsts = torch.stack([t[k, :, 0] for t in top[1:]])
+        noise = float((firsts[:, None] - firsts[None]).abs().amax((0, 1))[drawn[k] & used].max())
+        gaps = torch.stack([gap(top[0], k),
+                            torch.stack([gap(t, k) for t in top[1:]]).median(0).values]).amax(0)
+        bound = CHUNK_TOL_FACTOR * noise + CHUNK_LOSS_FLOOR * top[0][k, :, 0].abs()
+        ratio = torch.where(bound > 0, gaps / bound.clamp(min=1e-300),
+                            torch.where(gaps > 0, math.inf, 0.0))[judged]
+        ok &= bool((ratio <= 1).all())
+        worst = max(worst, float(ratio.max()))
+        shown += [f"step {k} point {int(p)}: top two {float(top[0][k, p, 0]):.7g} / "
+                  f"{float(top[0][k, p, 1]):.7g}, eager noise {noise:.3g}"
+                  for p in judged.nonzero().flatten()[:2]]
+    line = (f"head argmax: points other than every eager run's at steps {steps}"
+            + (f" ({judged_n} with drawn queries, within {worst:.3g} of their bound"
+               + (f": {'; '.join(shown[:4])}" if shown else "")
+               + f"; {derived_n} with queries the step predicted or after the first "
+               f"step with such a choice, not judged)" if steps else ""))
+    return steps, ok, line
+
+
+def choice_flips(got, eager, thresh, head_offset):
+    """The discrete choices of ``got`` that no ``eager`` run took: the cycle
+    filter's kept points (``cycle_flips``, with ``head_offset``) and the
+    head's hard argmax (``argmax_flips``) -> (the steps with such a choice,
+    every one at the first such step explained, a line). After the first,
+    ``got`` no longer shares the eager runs' choices: its later points
+    drift from theirs beyond their own spread (a chunk on an H100: a cycle
+    distance 1.7e-3 px from three eager runs within 1.9e-4 of each other,
+    9 steps after such a choice), so later choices are listed, not judged;
+    the run that takes ``got``'s choices carries the check on."""
+    steps = sorted(set(cycle_flips(got, eager, thresh, head_offset)[0])
+                   | set(argmax_flips(got, eager)[0]))
+    first = steps[0] if steps else None
+    c_ok, c_line = cycle_flips(got, eager, thresh, head_offset, first)[1:]
+    a_ok, a_line = argmax_flips(got, eager, first)[1:]
+    return steps, c_ok and a_ok, f"{c_line}; {a_line}"
+
+
+def loss_rules(got, eager, thresh, head_offset=None):
     """The loss terms' rule on ``StepRecorder``s of the graph run and the
     eager runs: every term's series of step values under ``spread_rows``
     (floor CHUNK_LOSS_FLOOR of the term), those of CYCLE_TERMS without the
     steps at which the graph's cycle filter kept other points than every
-    eager run, each such step explained by ``cycle_flips`` -> (the cycle
-    filter's (ok, line), the losses' ``spread_summary``, the rows over every
-    step, the rows as held)."""
+    eager run, each such step explained by ``cycle_flips`` (with
+    ``head_offset``) -> (the cycle filter's (ok, line), the losses'
+    ``spread_summary``, the rows over every step, the rows as held)."""
     from dino_tracker_tpu_torch.training.train import METRICS
-    flips, flips_ok, flips_line = cycle_flips(got, eager, thresh)
+    flips, flips_ok, flips_line = cycle_flips(got, eager, thresh, head_offset)
     steady = [k for k in range(len(got.losses)) if k not in flips]
     series = lambda rec, cut: [x[steady] if cut and name in CYCLE_TERMS else x
                                for name, x in zip(METRICS, rec.losses.T)]
@@ -960,15 +1189,16 @@ def rows_line(rows):
         f"{r[4]:.4g}" for r in rows)
 
 
-def params_summary(names, got, eager, base, steps, lr):
-    """``spread_summary`` of the parameters' change, but for the tensors
-    whose gradient is zero in exact math (MESH_NULL_GRADS: its float noise
-    sets the sign of each Adam step, so runs differ at random): those are
-    held to Adam's own limit instead, a change of at most 2·lr a step."""
+def params_summary(names, got, eager, base, steps, lr, ref=None):
+    """``spread_summary`` of the parameters' change (``spread_rows``, with
+    its ``ref``), but for the tensors whose gradient is zero in exact math
+    (MESH_NULL_GRADS: its float noise sets the sign of each Adam step, so
+    runs differ at random): those are held to Adam's own limit instead, a
+    change of at most 2·lr a step."""
     keep = [j for j, n in enumerate(names) if n not in MESH_NULL_GRADS]
-    pick = lambda xs: [xs[j] for j in keep]
+    pick = lambda xs: None if xs is None else [xs[j] for j in keep]
     ok, line = spread_summary("parameters' change", spread_rows(
-        pick(names), pick(got), [pick(r) for r in eager], pick(base)))
+        pick(names), pick(got), [pick(r) for r in eager], pick(base), ref=pick(ref)))
     for j, n in enumerate(names):
         if n in MESH_NULL_GRADS:
             moved = float((got[j].double() - base[j].double()).abs().max())
@@ -1029,7 +1259,15 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
     (``spread_rows``, ``params_summary``; CYCLE_TERMS without the steps at
     which the graph's cycle filter kept other points than every eager run,
-    each explained by ``cycle_flips``, ``loss_rules``); no host sync under
+    each explained by ``cycle_flips``, ``loss_rules``). With no mesh, where
+    the graph took a discrete choice that no eager run took (``choice_flips``:
+    the cycle filter's kept points, the head's hard argmax, each of which
+    must lie at its threshold within the runs' noise), a fourth eager run G
+    from the same state takes the graph's recorded choices at every step
+    (``FollowChoices``), and the parameters and BN statistics are held to G
+    alone (within the same factor of A-C's spread and the same floor): a
+    choice taken otherwise moves the head's small-gradient weights through
+    Adam far beyond what three runs that agreed on it spread. No host sync under
     torch.cuda.set_sync_debug_mode("error") over a replayed chunk; the card
     ran K1-fwd and K1-bwd 3 times each a replay in a trace. A miss names
     every row of the summary that missed and, for a loss term, its values
@@ -1043,7 +1281,6 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     "peak_capture", "peak_eager_a", "times": {graphed: [ms/iter]}, "peaks":
     {graphed: bytes}, "busy": {graphed: (ms/iter, busy, nccl share)},
     "digest": a hash of the graph run's parameters and BN statistics}}."""
-    import copy
     import hashlib
     from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
     from dino_tracker_tpu_torch.training import train
@@ -1105,6 +1342,20 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 kept[name] = runner
             del model, runner
         a, g = runs["eager A"], runs["graph"]
+        eager_recs = [runs[k][0] for k in ("eager A", "eager B", "eager C")]
+        head_offset = cfg.train_batch_size if mesh is None else None
+        # on a mesh each rank records its share of the head's calls: the
+        # cycle filter's rule alone (loss_rules), as before
+        choices = (choice_flips(g[0], eager_recs, cfg.cyc_thresh, head_offset)
+                   if mesh is None else None)
+        held_to = None  # eager G: (its recorder, parameters, BN statistics)
+        if mesh is None and choices[0]:  # from the state, the graph's choices
+            model, runner = fresh(start)
+            with StepRecorder(CHUNK_STEPS, cfg, dev, runner.sched.lr) as rec, \
+                    FollowChoices(g[0]):
+                chunk(runner, gates, False)
+            held_to = (rec, *model_state(model)[1::2])
+            del model, runner
         reserved = torch.cuda.memory_reserved(dev)
         note(f"the verdict: {memory_line(dev)}")
         # every rank learns of any rank's miss or fault before the next collective
@@ -1126,14 +1377,25 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 misses.append(f"the schedule inside the graph: rates {lrs}, expected {want}, "
                               f"count {g[5]}")
             eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
-            filtered, losses_held, every_step, loss_rows = loss_rules(
-                g[0], [r[0] for r in eager], cfg.cyc_thresh)
+            if held_to is None:  # loss_rules: CYCLE_TERMS without the cycle flips
+                filtered, losses_held, every_step, loss_rows = loss_rules(
+                    g[0], eager_recs, cfg.cyc_thresh, head_offset)
+            else:  # every term's series held to eager G's
+                every_step = loss_rows = spread_rows(
+                    train.METRICS, list(g[0].losses.T), [list(r.losses.T) for r in eager_recs],
+                    floor=CHUNK_LOSS_FLOOR, ref=list(held_to[0].losses.T))
+                losses_held = spread_summary("losses", loss_rows)
+            ref = (lambda j: None) if held_to is None else (lambda j: held_to[j])
             bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
-                                  from_state(start, b_names))
-            verdicts = [filtered, losses_held,
+                                  from_state(start, b_names), ref=ref(2))
+            verdicts = [filtered if choices is None else (choices[1], choices[2] + (
+                            "; held to " + (f"eager G, which took the graph's choices at "
+                                            f"steps {choices[0]}" if held_to is not None
+                                            else "eager A-C"))),
+                        losses_held,
                         params_summary(p_names, g[1], [r[1] for r in eager],
                                        from_state(start, p_names), CHUNK_STEPS,
-                                       cfg.lr_cnn_refiner),
+                                       cfg.lr_cnn_refiner, ref=ref(1)),
                         spread_summary("BN statistics' change", bn_rows)]
             if not all(v[0] for v in verdicts):
                 misses.append("the graph disagrees with the eager steps: "
@@ -1255,67 +1517,278 @@ def phase_train_chunks(dev, trainer, cfg, tcfg, data, smi):
     del model, runner
 
 
-def phase_train_resume(dev, long, tcfg, data, ckpt_folder, log_interval, names):
-    """A checkpoint the Trainer wrote after replays, resumed: from
-    ``ckpt_folder``'s state_<TRAINER_CHECKPOINT>.pt (run R, phase 5's main
-    path), the Trainer to ``long.total_iterations`` three times eagerly (E1,
-    E2, E3) and once in chunks of replays (S). Checked: the generator state
-    of every final checkpoint equals R's bit for bit (R saved the state its
-    replays left, the one they continued from), and so do the schedule's
-    count and Adam's step counts; R's and S's parameters and BN statistics,
-    as changes from the resumed checkpoint, each lie from E1-E3 (the median
-    distance) within CHUNK_TOL_FACTOR times their own spread plus
-    CHUNK_CHANGE_FLOOR of the change's scale. ``names``: the model's parameter
-    and BN-statistic names (``model_state``)."""
-    from dino_tracker_tpu_torch.training import checkpoint
+def bank_tensors(data):
+    """The tensors of ``data``'s two trajectory banks."""
+    return [x for bank in (data.fg_bank, data.bg_bank) for x in bank
+            if isinstance(x, torch.Tensor)]
+
+
+class SavedAt:
+    """Test-only wrapper of ``train.train_state`` (patched in while
+    entered): where a Trainer makes its checkpoint's state at step ``at``,
+    ``snap`` keeps the Trainer's own state in memory beside it: every
+    parameter and buffer by name (non-persistent ones included), Adam's
+    state by parameter name, the schedule's device rate and count, the
+    generator state and copies of ``data``'s trajectory banks."""
+
+    def __init__(self, at, data):
+        from dino_tracker_tpu_torch.training import train
+        self.train, self.at, self.data, self.snap = train, at, data, None
+
+    def train_state(self, model, opt, sched, generator, step):
+        state = self._state(model, opt, sched, generator, step)
+        if step == self.at:
+            name = {id(p): n for n, p in model.named_parameters()}
+            order = [name[id(p)] for g in opt.param_groups for p in g["params"]]
+            self.snap = dict(
+                tensors={n: t.detach().clone() for n, t in
+                         [*model.named_parameters(), *model.named_buffers()]},
+                # .get: indexing the optimizer's defaultdict would add state
+                adam={name[id(p)]: {k: v.clone() if torch.is_tensor(v) else v
+                                    for k, v in opt.state.get(p, {}).items()}
+                      for g in opt.param_groups for p in g["params"]},
+                order=order, lr=sched.lr.clone(), count=sched.count.clone(),
+                generator=generator.get_state(),
+                banks=[x.clone() for x in bank_tensors(self.data)])
+        return state
+
+    def __enter__(self):
+        self._state, self.train.train_state = self.train.train_state, self.train_state
+        return self
+
+    def __exit__(self, *exc):
+        self.train.train_state = self._state
+
+
+def compare_saved(snap, state, fresh, data, cfg):
+    """``SavedAt``'s snapshot against the checkpoint ``state`` it was saved
+    as, bit for bit: every parameter and buffer (one the file lacks must
+    equal ``fresh``'s, a newly initialised model's: the resumed run rebuilds
+    it), Adam's moments and step counts, the rate and count (and the rate a
+    resumed ``LRSchedule`` computes from the count), the generator state,
+    and ``data``'s banks as a resumed run finds them -> (all equal, a
+    line)."""
     from dino_tracker_tpu_torch.training import train
-    end = long.total_iterations
-    start = checkpoint.load_state(ckpt_folder, TRAINER_CHECKPOINT, map_location=dev)
+    same = lambda a, b: (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                         and torch.equal(a, b.to(a.device)))
+    saved = state["model"]
+    missing = [n for n in snap["tensors"] if n not in saved]
+    fresh_t = dict([*fresh.named_parameters(), *fresh.named_buffers()])
+    differ = [n for n, t in snap["tensors"].items()
+              if not same(t, saved[n] if n in saved else fresh_t[n])]
+    adam, n_adam = state["optimizer"]["state"], 0
+    for i, n in enumerate(snap["order"]):
+        for k, v in snap["adam"][n].items():
+            n_adam += 1
+            if i not in adam or not (same(v, adam[i][k]) if torch.is_tensor(v)
+                                     else v == adam[i][k]):
+                differ.append(f"Adam {n}.{k}")
+    again = train.LRSchedule(torch.zeros_like(snap["lr"]), cfg.lr_delta_dino,
+                             cfg.scheduler_gamma, cfg.apply_scheduler_every)
+    again.load_state_dict(state["scheduler"])
+    if not (int(snap["count"]) == state["scheduler"]["last_epoch"]
+            and float(snap["lr"]) == state["optimizer"]["param_groups"][0]["lr"]
+            and same(snap["lr"], again.lr)):
+        differ.append(f"the schedule: rate {float(snap['lr'])!r}, count {int(snap['count'])} "
+                      f"in memory; {state['optimizer']['param_groups'][0]['lr']!r}, "
+                      f"{state['scheduler']['last_epoch']} saved")
+    if not same(snap["generator"], state["generator"]):
+        differ.append("the generator state")
+    banks = bank_tensors(data)
+    if len(banks) != len(snap["banks"]) or not all(map(same, snap["banks"], banks)):
+        differ.append("the trajectory banks")
+    line = (f"{len(snap['tensors'])} parameters and buffers ({len(missing)} not in the file"
+            + (f": {', '.join(missing)}, each equal to a fresh init's" if missing else "")
+            + f"), Adam's {n_adam} moments and step counts, the rate "
+            f"{float(snap['lr']):.9g} and count {int(snap['count'])}, the generator, "
+            f"{len(banks)} bank tensors: " + (f"DIFFER: {', '.join(differ)}" if differ
+                                             else "all equal bit for bit"))
+    return not differ, line
+
+
+def resumed_run(long, tcfg, data, folder, source, dev, log_interval, graphed,
+                follow=None):
+    """The Trainer from ``source`` (a checkpoint file to copy, or a state to
+    save, as state_<long.checkpoint_interval>.pt in a fresh ``folder``) to
+    ``long.total_iterations``: eagerly, or in chunks of replays where
+    ``graphed``; with ``follow`` (recorder rows) taking those choices
+    (``FollowChoices``) -> (the final checkpoint, the run's own
+    ``StepRecorder`` rows)."""
+    from dino_tracker_tpu_torch.training import checkpoint, train
+    end, at = long.total_iterations, long.checkpoint_interval
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    if isinstance(source, str):
+        shutil.copy(source, folder)
+    else:
+        checkpoint.save_state(folder, source, at)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(eager_trainer(not graphed))
+        rec = stack.enter_context(StepRecorder(end - at, long, dev))
+        if follow is not None:
+            stack.enter_context(FollowChoices(follow))
+        train.Trainer(long, tcfg, data, folder, seed=2, device=dev).train(
+            log_interval=log_interval)
+    return checkpoint.load_state(folder, end, map_location=dev), rec.rows(0, end - at)
+
+
+def resume_check(dev, long, tcfg, data, ckpt_folder, log_interval, names, r_rows, work,
+                 start=None):
+    """The rule a run resumed from a checkpoint that replays wrote is held
+    to. R is the Trainer's own run through ``ckpt_folder``'s
+    state_<long.checkpoint_interval>.pt to ``long.total_iterations``
+    (``r_rows``: its ``StepRecorder`` rows from that step on). From that
+    file (or from ``start``, a state put in its place) the Trainer runs to
+    the end three times eagerly (E1, E2, E3) and once in chunks of replays
+    (S), each recorded. Checked: every final generator state equals R's bit
+    for bit, and so do the schedule's count and Adam's step counts; R's and
+    S's batches and rates equal E1-E3's at every step. Each of R and S: its
+    discrete choices that no eager run took (``choice_flips``: the cycle
+    filter's kept points, the head's argmax), those of the first such step
+    each at its threshold within the runs' noise; where it took any, a
+    fourth eager run
+    from the file that takes its recorded choices at every step (E_R, E_S;
+    ``FollowChoices``) is the run it is held to, else E1-E3: its
+    parameters and BN statistics, as changes from the file's, lie from the
+    eager runs (the median distance; from E_R or E_S alone) within
+    CHUNK_TOL_FACTOR times E1-E3's own spread plus CHUNK_CHANGE_FLOOR of the
+    change's scale. ``names``: the parameter and BN-statistic names
+    (``model_state``). -> (every check met, [(met, line)], {"R": steps with
+    a choice no eager run took, "S": ...}), steps counted from the file's."""
+    from dino_tracker_tpu_torch.training import checkpoint
+    end, at = long.total_iterations, long.checkpoint_interval
+    source = checkpoint.checkpoint_file(ckpt_folder, at) if start is None else start
+    if start is None:
+        start = checkpoint.load_state(ckpt_folder, at, map_location=dev)
     finals = {"R": checkpoint.load_state(ckpt_folder, end, map_location=dev)}
+    recs = {"R": r_rows}
     for name in ("E1", "E2", "S", "E3"):
-        folder = os.path.join(WORK_DIR, "resume", name)
-        shutil.rmtree(folder, ignore_errors=True)
-        os.makedirs(folder)
-        shutil.copy(checkpoint.checkpoint_file(ckpt_folder, TRAINER_CHECKPOINT), folder)
-        with eager_trainer(name != "S"):
-            train.Trainer(long, tcfg, data, folder, seed=2, device=dev).train(
-                log_interval=log_interval)
-        finals[name] = checkpoint.load_state(folder, end, map_location=dev)
-    gen, counts = {}, {}
-    for name, s in finals.items():
-        gen[name] = torch.equal(s["generator"], finals["R"]["generator"])
-        counts[name] = (s["scheduler"]["last_epoch"],
-                        sorted({int(v["step"]) for v in s["optimizer"]["state"].values()}))
-    check(all(gen.values()) and all(c == (end, [end]) for c in counts.values()),
-          f"resumed runs' generator equal to R's {gen}, (schedule count, Adam steps) "
-          f"{counts}, expected {end}")
-    p_names, b_names = names
+        finals[name], recs[name] = resumed_run(long, tcfg, data, os.path.join(work, name),
+                                               source, dev, log_interval, name == "S")
+    gen = {k: torch.equal(s["generator"], finals["R"]["generator"]) for k, s in finals.items()}
+    counts = {k: (s["scheduler"]["last_epoch"],
+                  sorted({int(v["step"]) for v in s["optimizer"]["state"].values()}))
+              for k, s in finals.items()}
+    results = [(all(gen.values()) and all(c == (end, [end]) for c in counts.values()),
+                f"final generator equal to R's {gen}, (schedule count, Adam steps) {counts}, "
+                f"expected {end}")]
+    eager_recs = [recs[k] for k in ("E1", "E2", "E3")]
     eager = [finals[k] for k in ("E1", "E2", "E3")]
-    lines, ok = [], True
+    p_names, b_names = names
+    only = {}
     for name in ("R", "S"):
-        at = lambda names: (from_state(finals[name], names),
-                            [from_state(e, names) for e in eager], from_state(start, names))
-        for good, line in (
-                params_summary(p_names, *at(p_names),
-                               end - TRAINER_CHECKPOINT, long.lr_cnn_refiner),
-                spread_summary("BN statistics' change",
-                               spread_rows(b_names, *at(b_names)))):
-            ok &= good
-            lines.append(f"{name} {line}")
-    print(f"train resume: from R's state_{TRAINER_CHECKPOINT}.pt (written after replays) "
-          f"to {end}, eagerly three times (E1-E3) and in chunks of replays (S): every final "
-          f"generator state equal to R's, schedule count and Adam steps {end}; each "
-          f"tensor's median L2 distance to E1-E3 against {CHUNK_TOL_FACTOR:g}x their spread + "
-          f"{CHUNK_CHANGE_FLOOR:g} of its change: " + "; ".join(lines), flush=True)
-    check(ok, "a run resumed from a checkpoint written after replays left the eager runs")
+        x = recs[name]
+        same = all(torch.equal(getattr(x, k), getattr(e, k)) for e in eager_recs
+                   for k in ("frames", "src", "tgt", "lrs"))
+        steps, explained, line = choice_flips(x, eager_recs, long.cyc_thresh,
+                                              long.train_batch_size)
+        only[name] = steps
+        ref = None
+        if steps:
+            finals["E_" + name] = resumed_run(long, tcfg, data, os.path.join(work, "E_" + name),
+                                              source, dev, log_interval, False, follow=x)[0]
+            ref = lambda names, k=name: from_state(finals["E_" + k], names)
+            grads = torch.stack([e.head_grads for e in eager_recs]).median(0).values
+            j = HEAD_TENSORS.index("tracker_head.conv2.weight")
+            line += "; conv2.weight's gradient norm at those steps, run / eager median: " + (
+                ", ".join(f"{k} {float(x.head_grads[k, j]):.4g} / {float(grads[k, j]):.4g}"
+                          for k in steps[:6]))
+        results.append((same and explained,
+                        f"{name}: batches and rates equal to E1-E3's at every step: {same}; "
+                        f"{line}; held to " + (f"E_{name}, which took its choices"
+                                               if steps else "E1-E3")))
+        at_ = lambda names: (from_state(finals[name], names),
+                             [from_state(e, names) for e in eager], from_state(start, names))
+        held = lambda names: None if ref is None else ref(names)
+        results += [(good, f"{name} {text}") for good, text in (
+            params_summary(p_names, *at_(p_names), end - at, long.lr_cnn_refiner,
+                           ref=held(p_names)),
+            spread_summary("BN statistics' change",
+                           spread_rows(b_names, *at_(b_names), ref=held(b_names))))]
+    return all(r[0] for r in results), results, only
 
 
-def phase_train(bp, dev, video, dino, smi):
+# the faults planted in a checkpoint that the resume check must catch
+RESUME_FAULTS = ("Adam moments zeroed", "BN running statistics reset",
+                 "generator state from the step before")
+
+
+def planted(state, kind, generator):
+    """A copy of checkpoint ``state`` with fault ``kind`` (RESUME_FAULTS)
+    planted; ``generator``: the generator state of the step before."""
+    s = copy.deepcopy(state)
+    if kind == RESUME_FAULTS[0]:
+        for v in s["optimizer"]["state"].values():
+            v["exp_avg"].zero_()
+            v["exp_avg_sq"].zero_()
+    elif kind == RESUME_FAULTS[1]:
+        for k, v in s["model"].items():
+            if k.endswith("running_mean") or k.endswith("num_batches_tracked"):
+                v.zero_()
+            elif k.endswith("running_var"):
+                v.fill_(1.0)
+    else:
+        s["generator"] = generator.clone()
+    return s
+
+
+def resume_faults(dev, long, tcfg, data, ckpt_folder, log_interval, names, r_rows, work):
+    """``resume_check`` with each of RESUME_FAULTS planted in the file E1-E3,
+    S and E_R resume from (the generator of the step before from a Trainer
+    run to that step) -> [(fault, the check met, its [(met, line)])]."""
+    from dino_tracker_tpu_torch.training import checkpoint, train
+    at = long.checkpoint_interval
+    start = checkpoint.load_state(ckpt_folder, at, map_location=dev)
+    folder = os.path.join(work, "before")
+    shutil.rmtree(folder, ignore_errors=True)
+    train.Trainer(dataclasses.replace(long, total_iterations=at - 1), tcfg, data, folder,
+                  seed=2, device=dev).train(log_interval=log_interval)
+    before = checkpoint.load_state(folder, at - 1, map_location=dev)["generator"]
+    out = []
+    for k, kind in enumerate(RESUME_FAULTS):
+        ok, results, _ = resume_check(dev, long, tcfg, data, ckpt_folder, log_interval, names,
+                                      r_rows, os.path.join(work, f"fault_{k}"),
+                                      planted(start, kind, before))
+        out.append((kind, ok, results))
+    return out
+
+
+def phase_train_resume(dev, long, tcfg, data, ckpt_folder, log_interval, names, r_rows,
+                       faults=False):
+    """``resume_check`` on phase 5's Trainer run R, printed; raises where a
+    check missed. With ``faults``, then ``resume_faults``: the check must
+    miss each planted fault."""
+    at = long.checkpoint_interval
+    ok, results, only = resume_check(dev, long, tcfg, data, ckpt_folder, log_interval, names,
+                                     r_rows, os.path.join(WORK_DIR, "resume"))
+    print(f"train resume: from R's state_{at}.pt (written after replays) to "
+          f"{long.total_iterations}, eagerly three times (E1-E3) and in chunks of replays (S); "
+          f"steps with a choice no eager run took: R {[at + k for k in only['R']]}, S "
+          f"{[at + k for k in only['S']]}; each tensor's L2 distance against "
+          f"{CHUNK_TOL_FACTOR:g}x E1-E3's spread + {CHUNK_CHANGE_FLOOR:g} of its change: "
+          + "; ".join(line for _, line in results), flush=True)
+    check(ok, "a run resumed from a checkpoint written after replays left the eager runs: "
+          + "; ".join(line for good, line in results if not good))
+    if not faults:
+        return
+    for kind, met, results in resume_faults(dev, long, tcfg, data, ckpt_folder, log_interval,
+                                            names, r_rows,
+                                            os.path.join(WORK_DIR, "resume_faults")):
+        missed = [line for good, line in results if not good]
+        print(f"train resume, planted fault ({kind}): the check "
+              f"{'MET' if met else 'missed'}: " + "; ".join(missed), flush=True)
+        check(not met, f"the resume check did not miss a checkpoint with {kind}")
+
+
+def phase_train(bp, dev, video, dino, smi, faults=False):
     """The training slice at full width; returns the K1-fwd and K1-bwd
     launches of its main path: the timed train_step loop (the wrappers'
     counts) and the Trainer's run in chunks (the wrappers' counts of its
     eager warm-up steps, and the kernels the card ran in its replays, traced
-    by torch.profiler)."""
+    by torch.profiler). The Trainer's run is R of the resume check: every
+    step recorded (``StepRecorder``, in place before its captures) and its
+    state in memory at its checkpoint held to the file bit for bit
+    (``SavedAt``, ``compare_saved``). ``faults``: ``phase_train_resume``'s."""
     from dino_tracker_tpu_torch import runtime
     from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from dino_tracker_tpu_torch.training import checkpoint, train
@@ -1360,7 +1833,8 @@ def phase_train(bp, dev, video, dino, smi):
     syncs = [count_syncs(lambda: train.train_step(model, opt, sched, data, gen, g, g, cfg,
                                                    tcfg)) for g in (False, True)]
     t0 = time.perf_counter()
-    with TracedReplays() as watch:
+    with TracedReplays() as watch, StepRecorder(TRAINER_ITERATIONS, long, dev) as r_rec, \
+            SavedAt(TRAINER_CHECKPOINT, data) as saved:
         train.Trainer(long, tcfg, data, ckpt_folder, seed=2, device=dev).train(
             log_interval=TRAINER_LOG)
     trainer_s = time.perf_counter() - t0
@@ -1385,6 +1859,11 @@ def phase_train(bp, dev, video, dino, smi):
     steps_saved = checkpoint.checkpoint_steps(ckpt_folder)
     check(steps_saved == [TRAINER_ITERATIONS, TRAINER_CHECKPOINT],
           f"Trainer wrote checkpoints {steps_saved}")
+    same, line = compare_saved(saved.snap, checkpoint.load_state(
+        ckpt_folder, TRAINER_CHECKPOINT, map_location=dev), trainer.init_model(), data, long)
+    print(f"train resume: the Trainer's state in memory at {TRAINER_CHECKPOINT} against its "
+          f"state_{TRAINER_CHECKPOINT}.pt: {line}", flush=True)
+    check(same, f"the Trainer's state_{TRAINER_CHECKPOINT}.pt lacks state it carries: {line}")
     names = model_state(model)[::2]
     del model, opt, sched, history
     fmt = lambda m: ", ".join(f"{k} {float(v):.6g}" for k, v in m.items())
@@ -1403,7 +1882,10 @@ def phase_train(bp, dev, video, dino, smi):
     print(f"train: losses, gates on: {fmt(m_on)}", flush=True)
 
     phase_train_chunks(dev, trainer, cfg, tcfg, data, smi)
-    phase_train_resume(dev, long, tcfg, data, ckpt_folder, TRAINER_LOG, names)
+    phase_train_resume(dev, long, tcfg, data, ckpt_folder, TRAINER_LOG, names,
+                       r_rec.rows(TRAINER_CHECKPOINT, TRAINER_ITERATIONS - TRAINER_CHECKPOINT),
+                       faults)
+    del r_rec
 
     # serve the Trainer's last checkpoint
     t0 = time.perf_counter()
@@ -3326,7 +3808,9 @@ def golden_inputs(stage, meta):
     digests checked against the golden's: (inputs, widths)."""
     fw = full_width_inputs()
     wd = {w.name: w for w in (fw.FULL, fw.TOY)}[meta["widths"]["name"]]
-    check(json.loads(json.dumps(dataclasses.asdict(wd))) == meta["widths"],
+    # a field added to Widths after a golden was made is not in its record
+    now = json.loads(json.dumps(dataclasses.asdict(wd)))
+    check({k: now.get(k) for k in meta["widths"]} == meta["widths"],
           f"full width {stage}: the golden was made at other widths than {wd.name}")
     inp = fw.make(stage, wd, meta["seed"])
     got = fw.digests(inp)
@@ -3615,11 +4099,224 @@ def compare_bb(meta, rec, out):
     return _judge("bb", rows)
 
 
+def traj_margins(fwd, bwd, direct, wd, eps):
+    """The port's float64 recomputation of stage 1's chaining on the same
+    flows (every step of ``preprocessing/trajectories.py``, the sampling
+    and the norms in float64), for each start frame s -> {"first": {pass:
+    S×H×W int64, the first frame at which the pixel's chain, while alive in
+    float64, put its cycle error, (pass f) its direct-flow error, or a
+    coordinate within ``eps`` px of the threshold or of the frame's bound (T
+    where it never did)}, "coords": S×T×H×W×2 float64 positions (the chain
+    advances whether alive or not; the grid before s), "mask_near": T×H×W
+    bool, the flow masks' cycle error within ``eps`` of the threshold}: the
+    pixels where a last-bit difference between two implementations can
+    flip a decision."""
+    from dino_tracker_tpu_torch.preprocessing import trajectories as traj
+    from dino_tracker_tpu_torch.utils.sampling import bilinear_sampler_pixel
+    fw = full_width_inputs()
+    th, dth = fw.TRAJ_ARGS["threshold"], fw.TRAJ_ARGS["direct_flow_threshold"]
+    t, h, w = wd.traj_t, wd.h, wd.w
+    f64, b64 = fwd.double(), bwd.double()
+    grid = traj._grid(h, w, fwd.device).double()
+    norm = lambda d: torch.sqrt((d * d).sum(-1))
+    warp = lambda flow, c: bilinear_sampler_pixel(flow[None], c[None])[0].permute(1, 2, 0)
+    upper = torch.tensor([w - 1.0, h - 1.0], dtype=torch.float64, device=fwd.device)
+    n_starts = t - (fw.TRAJ_ARGS["min_trajectory_length"] - 1)
+    first = {k: torch.full((n_starts, h, w), t, dtype=torch.int64, device=fwd.device)
+             for k in "fu"}
+    coords_all = grid.expand(n_starts, t, h, w, 2).clone()
+    for s in range(n_starts):
+        dflows, dmasks = traj._padded_direct(direct, s, t - 1, h, w, fwd.device)
+        dflows = dflows.double()
+        coords = grid
+        alive = {k: torch.ones((h, w), dtype=torch.bool, device=fwd.device) for k in "fu"}
+        for idx in range(s, t - 1):
+            c1 = coords + warp(f64[idx], coords)
+            err = norm(coords - (c1 + warp(b64[idx], c1)))
+            edge = torch.cat([c1, upper - c1], -1).abs().amin(-1)
+            near = ((err - th).abs() < eps) | (edge < eps)
+            err_d = norm(c1 - (grid + dflows[idx - s])) * (dmasks[idx - s] > 0.2)
+            ok = (err < th) & ((c1 >= 0) & (c1 <= upper)).all(-1)
+            for k, hit, also in (("u", near, ok), ("f", near | ((err_d - dth).abs() < eps),
+                                                  ok & (err_d < dth))):
+                first[k][s] = torch.where(alive[k] & hit & (first[k][s] == t), idx + 1,
+                                          first[k][s])
+                alive[k] = alive[k] & also
+            coords = c1
+            coords_all[s, idx + 1] = c1
+    c1 = grid[None] + b64.permute(0, 2, 3, 1)
+    err = norm(grid[None] - (c1 + bilinear_sampler_pixel(f64, c1).permute(0, 2, 3, 1)))
+    mask_near = torch.cat([torch.zeros((1, h, w), dtype=torch.bool, device=fwd.device),
+                           (err - th).abs() < eps])
+    return {"first": {k: v.cpu().numpy() for k, v in first.items()},
+            "coords": coords_all.cpu().numpy(), "mask_near": mask_near.cpu().numpy()}
+
+
+def full_width_traj(inp, wd, dev):
+    """Stage 1's chaining: the port's extract_trajectories_dual on ``dev``
+    with the golden's direct flows through direct_flow_fn (the occupancy
+    through utils/native_traj.py), each start's keep masks of _chain_dual and
+    _keep_mask, and ``traj_margins`` -> {"trajs": {pass: N×T×2}, "keep":
+    {pass: S×H×W}, "margins", "seconds"}."""
+    from dino_tracker_tpu_torch.preprocessing import trajectories as traj
+    fw = full_width_inputs()
+    args = fw.TRAJ_ARGS
+    t, h, w = wd.traj_t, wd.h, wd.w
+    fwd, bwd = (torch.from_numpy(inp[k]).to(dev) for k in ("fwd", "bwd"))
+    direct = lambda s: (torch.from_numpy(inp["direct"][s]).to(dev),
+                        torch.from_numpy(inp["direct_masks"][s]).to(dev))
+    fence(dev)
+    t0 = time.perf_counter()
+    trajs = traj.extract_trajectories_dual(fwd, bwd, direct_flow_fn=direct, **args)
+    seconds = time.perf_counter() - t0
+    keep = {"f": [], "u": []}
+    for start in range(t - (args["min_trajectory_length"] - 1)):
+        dflows, dmasks = traj._padded_direct(direct, start, t - 1, h, w, dev)
+        tls = traj._chain_dual(fwd, bwd, start, dflows, dmasks, args["threshold"],
+                               args["direct_flow_threshold"])
+        for key, tl in zip("fu", tls):
+            keep[key].append(traj._keep_mask(tl, args["min_trajectory_length"]).cpu().numpy())
+    margins = traj_margins(fwd, bwd, direct, wd, fw.TOLERANCES["traj"]["eps_px"])
+    return {"trajs": dict(zip("fu", trajs)), "keep": {k: np.stack(v) for k, v in keep.items()},
+            "margins": margins, "seconds": seconds}
+
+
+def traj_ambiguous_cells(trajs, starts, exact, first, coords, s0, h, w, eps_half):
+    """The cells of frame ``s0`` whose occupancy two implementations can
+    set apart, from the rows of the starts before ``s0`` (``starts``: each
+    row's start, ``exact``: rows ideal in both implementations,
+    ``full_width_inputs.traj_ideal_rows``): the cells on both sides of
+    a coordinate within ``eps_half`` of a half-integer (the occupancy's
+    rounding), and the four cells around the float64 position of every row
+    whose chain came within the margin of a threshold before ``s0``
+    (``first``, ``coords``: ``traj_margins``'s; alive in one
+    implementation, dead in the other). Exact rows round alike everywhere.
+    -> H×W bool."""
+    amb = np.zeros((h, w), bool)
+    earlier = (starts < s0) & ~exact
+    pos = trajs[earlier, s0].astype(np.float64)
+    pos = pos[np.isfinite(pos[:, 0])]
+    near = (np.abs(np.mod(pos, 1.0) - 0.5) < eps_half).any(-1)
+    rows = np.arange(len(trajs))[earlier]
+    p0 = trajs[rows, starts[rows]].astype(np.int64)
+    flipped = first[starts[rows], p0[:, 1], p0[:, 0]] <= s0
+    cand = [pos[near], coords[starts[rows][flipped], s0, p0[flipped, 1], p0[flipped, 0]]]
+    for p in cand:
+        for fx in (np.floor, np.ceil):
+            for fy in (np.floor, np.ceil):
+                x = np.clip(fx(p[:, 0]), 0, w - 1).astype(np.int64)
+                y = np.clip(fy(p[:, 1]), 0, h - 1).astype(np.int64)
+                amb[y, x] = True
+    return amb
+
+
+def compare_traj(meta, rec, out):
+    """Stage 1's chaining against the golden, each pass (TOLERANCES["traj"],
+    full_width_inputs.py): every start's keep masks equal but at threshold
+    pixels (``traj_margins``: the port's float64 chain within eps_px of a
+    threshold or bound), their count capped; the kept pixels of each start
+    equal up to the first start s0 where they differ, each difference at s0
+    a threshold pixel, a flow-mask pixel within eps_px of the threshold or
+    an occupancy cell an earlier row can round into either way
+    (``traj_ambiguous_cells``); for every start before s0: the exact rows'
+    counts, per-frame NaN counts and half-integer coordinates equal (no
+    margin: every implementation computes them alike), the per-frame NaN
+    counts of the others within the rows of the start that came within the
+    margin of a threshold by that frame, the per-frame coordinate sums
+    within sum_rel (and a frame's width a row that did), the sampled rows
+    within sample_px and NaN where the golden's are but for such rows.
+    Prints each pass's threshold pixels and how far a difference spreads."""
+    fw = full_width_inputs()
+    tol = meta["tolerances"]
+    h, w, t = meta["widths"]["h"], meta["widths"]["w"], meta["widths"]["traj_t"]
+    rows, notes = [], []
+    margins = out["margins"]
+    n_flips = 0
+    for p in "fu":
+        trajs, keep = out["trajs"][p], out["keep"][p]
+        starts = fw.traj_row_starts(trajs)
+        p0 = trajs[np.arange(len(trajs)), starts].astype(np.int64)
+        # the rows ideal here and in the golden: the same bits in both
+        ideal_g = fw.unpack_masks(rec[f"{p}/ideal"], h, w)
+        exact = (fw.traj_ideal_rows(trajs, starts, h, w)
+                 & ideal_g[starts, p0[:, 1], p0[:, 0]])
+        got = fw.record_traj(trajs, keep, h, w, rec[f"{p}/idx"], exact)
+        n_starts = keep.shape[0]
+        first = margins["first"][p]
+        near_any = first < t
+        diff = fw.unpack_masks(rec[f"{p}/keep"], h, w) ^ keep
+        n_flips += int(diff.sum())
+        rows.append((f"{p}/keep masks: pixels off a threshold that differ",
+                     float((diff & ~near_any).sum()), 0.0))
+        kept_g, kept_p = (fw.unpack_masks(x, h, w) for x in (rec[f"{p}/kept"], got["kept"]))
+        s0 = next((s for s in range(n_starts) if (kept_g[s] ^ kept_p[s]).any()), n_starts)
+        if s0 < n_starts:
+            amb = traj_ambiguous_cells(trajs, starts, exact, first, margins["coords"], s0, h,
+                                       w, tol["eps_half"])
+            d = kept_g[s0] ^ kept_p[s0]
+            why = near_any[s0] | margins["mask_near"][s0] | amb
+            rows.append((f"{p}/kept pixels at start {s0}, the first that differs: off every "
+                         f"threshold", float((d & ~why).sum()), 0.0))
+            later = got["count"][s0 + 1:].sum(), rec[f"{p}/count"][s0 + 1:].sum()
+            notes.append(f"pass {p}: kept pixels differ first at start {s0} ({int(d.sum())} "
+                         f"pixels, each at a threshold); the starts after it hold {later[0]} "
+                         f"trajectories here, {later[1]} in the golden (not held)")
+        else:
+            notes.append(f"pass {p}: kept pixels equal at every start ({got['total']} "
+                         f"trajectories)")
+        held = slice(0, s0)
+        # the rows of each start that came within the margin of a threshold
+        # by each frame (their NaN can differ from that frame on)
+        row_first = np.where(exact, t, first[starts, p0[:, 1], p0[:, 0]])
+        near_by = np.stack([np.stack([((starts == s) & (row_first <= f)).sum()
+                                      for f in range(t)]) for s in range(n_starts)])
+        rows.append(_err(f"{p}/count of the starts before {s0}", got["count"][held],
+                         rec[f"{p}/count"][held], 0.0))
+        # the ideal rows' counts, at the starts where both keep the same rows
+        # ideal (elsewhere the rows ideal in one lie within ulps of it)
+        same = np.array([np.array_equal(ideal_g[s], fw.unpack_masks(got["ideal"], h, w)[s])
+                         for s in range(s0)], bool)
+        if not same.all():
+            notes.append(f"pass {p}: rows ideal in one implementation only at starts "
+                         f"{np.flatnonzero(~same).tolist()}")
+        for k in ("exact_count", "exact_nan", "exact_half"):
+            rows.append(_err(f"{p}/{k} of the starts before {s0} (ideal rows)",
+                             got[k][:s0][same], rec[f"{p}/{k}"][:s0][same], 0.0))
+        excess = np.abs(got["nan"][held] - rec[f"{p}/nan"][held]) - near_by[held]
+        rows.append((f"{p}/per-frame NaN counts beyond the rows at a threshold, starts before "
+                     f"{s0}", float(max(excess.max(initial=0), 0)), 0.0))
+        size = np.asarray([w - 1, h - 1], np.float64)
+        bound = (tol["sum_rel"] * np.maximum(np.abs(rec[f"{p}/sum"][held]), 1.0)
+                 + near_by[held][..., None] * size)
+        err = np.abs(got["sum"][held] - rec[f"{p}/sum"][held]) / bound
+        rows.append((f"{p}/per-frame coordinate sums over their bound, starts before {s0}",
+                     float(err.max(initial=0)), 1.0))
+        idx = rec[f"{p}/idx"]
+        mine = idx < got["count"][:s0].sum()
+        a, b = got["vals"][mine], rec[f"{p}/vals"][mine]
+        free = row_first[idx[mine]] < t
+        nan_off = (np.isnan(a) != np.isnan(b)).any((1, 2)) & ~free
+        rows.append((f"{p}/sampled rows NaN where the golden's are not, off a threshold",
+                     float(nan_off.sum()), 0.0))
+        both = np.isfinite(a) & np.isfinite(b)
+        rows.append((f"{p}/sampled coordinates (px)",
+                     float(np.abs(a - b)[both].max(initial=0)), tol["sample_px"]))
+    rows.append(("threshold pixels whose keep masks differ, both passes", float(n_flips),
+                 float(tol["max_threshold_pixels"])))
+    near = {p: int((margins["first"][p] < t).sum()) for p in "fu"}
+    print(f"full width traj: T={t} at {w}x{h}, the port's chaining {out['seconds']:.2f} s; "
+          f"pixels within {tol['eps_px']:g} px of a threshold in the float64 chains, all "
+          f"starts: pass f {near['f']}, u {near['u']}; keep-mask pixels that differ there: "
+          f"{n_flips}; " + "; ".join(notes), flush=True)
+    return _judge("traj", rows)
+
+
 FULL_WIDTH_STAGES = {"vit": (full_width_vit, compare_vit),
                      "raft": (full_width_raft, compare_raft),
                      "train": (full_width_train, compare_train),
                      "refine": (full_width_refine, compare_refine),
-                     "bb": (full_width_bb, compare_bb)}
+                     "bb": (full_width_bb, compare_bb),
+                     "traj": (full_width_traj, compare_traj)}
 
 
 def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
@@ -3701,6 +4398,10 @@ def main():
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the K1 build and the training slice (phase 5)")
+    ap.add_argument("--resume-faults", action="store_true",
+                    help="with --train-only: then phase 5's resume check from "
+                         "checkpoints with each of three planted faults, each of which "
+                         "it must miss")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run only the kernel builds, the launches on cuda:1 and "
                          "phases 13 and 12 with this many ranks, one card each over "
@@ -3772,7 +4473,7 @@ def main():
         build_kernels([("blurpool.cu", bp)])
         video, dino = make_inputs(T, H, W, CHANNELS[-1], TrackerConfig(
             video_h=H, video_w=W, delta_channels=CHANNELS).feat_hw, dev, 1)
-        phase_train(bp, dev, video, dino, smi)
+        phase_train(bp, dev, video, dino, smi, args.resume_faults)
         return
     if args.full_width:  # phase 14 alone
         build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),

@@ -31,6 +31,13 @@ def normalized_conv2d(x_nhwc: torch.Tensor, conv: pnn.Conv) -> torch.Tensor:
                       padding=w.shape[-1] // 2)
 
 
+def hard_argmax(cost_volume_b1hw: torch.Tensor) -> torch.Tensor:
+    """The flat index of each map's first maximum (as ``jnp.argmax``): the
+    centre of the soft-argmax window. A module-level function, so a check
+    can record or replace the head's choice."""
+    return torch.argmax(cost_volume_b1hw.flatten(1), dim=1)
+
+
 class TrackerHead(nn.Module):
     def __init__(self, in_channels: int = 1, hidden_channels: int = 16,
                  out_channels: int = 1, kernel_size: int = 3):
@@ -53,7 +60,7 @@ class TrackerHead(nn.Module):
         dev = cost_volume_b1hw.device
 
         # hard argmax on the RAW map (first maximum, as jnp.argmax)
-        argmax_flat = torch.argmax(cost_volume_b1hw.reshape(b, hp * wp), dim=1)
+        argmax_flat = hard_argmax(cost_volume_b1hw)
         row = argmax_flat // wp
         col = argmax_flat % wp
 

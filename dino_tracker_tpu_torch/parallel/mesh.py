@@ -347,23 +347,32 @@ def check_devices(n_devices: int, device_type: str, share_device: bool = False):
                 f"visible: nothing runs on fewer ranks or on the CPU instead")
 
 
+# seconds that ``spawn`` waits for every rank to join the group: a rank
+# imports torch and its caller's module first, which takes seconds alone and
+# minutes on a host busy with other work
+JOIN_TIMEOUT_S = 600.0
+
+
 def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
-    if device_type == "cuda":
-        index = 0 if share_device else rank
-        torch.cuda.set_device(index)  # before any other CUDA call of the rank
-        device = torch.device("cuda", index)
-        backend = "gloo" if share_device else "nccl"
-    else:
-        device, backend = torch.device("cpu"), "gloo"
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
-    # the ranks share one host: their sockets stay on the loopback interface
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    store = dist.FileStore(os.path.join(workdir, "store"), n)
-    dist.init_process_group(backend, store=store, rank=rank, world_size=n)
-    # agree's votes stay off NCCL
-    host = dist.new_group(backend="gloo") if backend == "nccl" else None
+    joined = False
     try:
+        if device_type == "cuda":
+            index = 0 if share_device else rank
+            torch.cuda.set_device(index)  # before any other CUDA call of the rank
+            device = torch.device("cuda", index)
+            backend = "gloo" if share_device else "nccl"
+        else:
+            device, backend = torch.device("cpu"), "gloo"
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        # the ranks share one host: their sockets stay on the loopback interface
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        store = dist.FileStore(os.path.join(workdir, "store"), n)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=n)
+        joined = True
+        # agree's votes stay off NCCL
+        host = dist.new_group(backend="gloo") if backend == "nccl" else None
+        open(os.path.join(workdir, f"joined_{rank}"), "w").close()  # spawn's clock starts
         out = fn(Mesh(rank, n, device, dist.group.WORLD, host), *args)
         torch.save(out, os.path.join(workdir, f"result_{rank}.pt"))
     except BaseException:
@@ -373,13 +382,21 @@ def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
             f.write(traceback.format_exc())
         raise
     finally:
-        dist.destroy_process_group()
+        if joined:
+            dist.destroy_process_group()
 
 
 def _rank_errors(workdir: str, n: int) -> list:
     """The tracebacks the failed ranks of a ``spawn`` left, in rank order."""
     return [f"rank {r}:\n{open(path).read()}" for r in range(n)
             if os.path.exists(path := os.path.join(workdir, f"error_{r}.txt"))]
+
+
+def _stop(ctx):
+    for p in ctx.processes:
+        p.terminate()
+    for p in ctx.processes:
+        p.join()
 
 
 def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
@@ -393,27 +410,42 @@ def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
     ``cuda:0`` (gloo); ``device_type="cpu"`` runs gloo ranks on
     the CPU. Rendezvous is a ``FileStore`` in a temporary directory: no port,
     no network. ``fn`` and ``args`` must pickle (``fn`` a module-level
-    function). A rank that raises makes ``spawn`` stop the others and raise;
-    so does a run longer than ``timeout`` seconds. The error lists every
-    failed rank's traceback: the first rank to fail need not be the first
-    one reported. A rank that failed may not exit (NCCL's teardown waits
-    for peers blocked in a collective it left), so the timeout's error
-    lists the tracebacks of the ranks that failed before it too."""
+    function). A rank that raises makes ``spawn`` stop the others and raise,
+    at once, whether or not every rank has joined the group; so does a run
+    of ``fn`` longer than ``timeout`` seconds, counted from the moment the
+    last rank joined (starting a process, importing torch and the caller's
+    module, and the rendezvous do not count, as a busy host can stretch
+    them to tens of seconds), and a rendezvous longer than JOIN_TIMEOUT_S
+    (600) seconds, counted from the start: a rank that hangs before it joins
+    cannot hang ``spawn`` for ever. The error lists every failed rank's traceback: the first rank to
+    fail need not be the first one reported. A rank that failed may not
+    exit (NCCL's teardown waits for peers blocked in a collective it left),
+    so the timeout's error lists the tracebacks of the ranks that failed
+    before it too."""
     check_devices(n_devices, device_type, share_device)
     workdir = tempfile.mkdtemp(prefix="mesh-")
+    joined = lambda: all(os.path.exists(os.path.join(workdir, f"joined_{r}"))
+                         for r in range(n_devices))
     try:
         ctx = torch.multiprocessing.start_processes(
             _rank_main, nprocs=n_devices, join=False, start_method="spawn",
             args=(fn, n_devices, device_type, share_device, workdir, tuple(args)))
-        deadline = None if timeout is None else time.monotonic() + timeout
         try:
+            start = time.monotonic()
+            while not joined():  # the rendezvous; a failed rank raises in join
+                if ctx.join(0.05):
+                    break
+                if time.monotonic() - start >= JOIN_TIMEOUT_S:
+                    _stop(ctx)
+                    errors = _rank_errors(workdir, n_devices)
+                    raise TimeoutError(
+                        f"{n_devices} ranks did not all join the group in {JOIN_TIMEOUT_S} s; "
+                        f"{len(errors)} failed before\n" + "\n".join(errors))
+            deadline = None if timeout is None else time.monotonic() + timeout
             while not ctx.join(None if deadline is None
                                else max(deadline - time.monotonic(), 0.0)):
                 if deadline is not None and time.monotonic() >= deadline:
-                    for p in ctx.processes:
-                        p.terminate()
-                    for p in ctx.processes:
-                        p.join()
+                    _stop(ctx)
                     errors = _rank_errors(workdir, n_devices)
                     raise TimeoutError(f"{n_devices} ranks did not finish in {timeout} s; "
                                        f"{len(errors)} failed before\n" + "\n".join(errors))

@@ -18,7 +18,13 @@ port, so the card rebuilds the goldens' inputs without JAX:
   d. ``refine``: other such weights, T = 20 frames and a stack, and the 256
      query points of one request;
   e. ``bb``: a T = 4, C = 1024 stack of ±1 features (every cosine a multiple
-     of 2^-9, exact in f32 in any summation order) and 12,000 trajectories.
+     of 2^-9, exact in f32 in any summation order) and 12,000 trajectories;
+  f. ``traj``: stage 1's chaining on synthetic flows of T = 8 frames: the
+     forward and backward flows of a background moving (1.5, 0.5) px a frame
+     with a smooth perturbation, an occluder that moves otherwise, blocks of
+     backward-flow noise at and beyond the 1.5 px cycle threshold, and the
+     direct flows of every start with their masks, blocks of them at and
+     beyond the 2.5 px direct threshold (no RAFT: stage ``raft`` holds it).
 
 Frames are a random texture sampled bilinearly at a sub-pixel shift a frame
 and rounded to bytes: only +, ×, floor and the generator's own streams, so
@@ -40,7 +46,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-STAGES = ("vit", "raft", "train", "refine", "bb")
+STAGES = ("vit", "raft", "train", "refine", "bb", "traj")
 
 # What phase 14 holds the port to, stage by stage (recorded in each golden).
 # vit: f32 features within 1e-4 of the layer's largest |feature|; bf16 a
@@ -59,6 +65,17 @@ STAGES = ("vit", "raft", "train", "refine", "bb")
 # refine: the refined stack within a share of its largest magnitude, tracks
 #   within px, occlusion flags equal (tests/test_torch_inference.py).
 # bb: every buddy, cosine, ratio and closest trajectory equal.
+# traj: the chaining's keep masks of every start and pass equal but at
+#   "threshold pixels", where the port's float64 recomputation of the
+#   pixel's chain puts a cycle error, a direct-flow error or a coordinate
+#   within eps_px of its threshold or bound (at most max_threshold_pixels of
+#   them, in all); the kept pixels of each start equal up to the first start
+#   where they differ, each difference there a threshold pixel, a flow-mask
+#   pixel (its cycle error within eps_px of the threshold) or a cell that an
+#   earlier trajectory's position within eps_half of a half-integer rounds
+#   into either way; every start before it: its per-frame NaN counts equal,
+#   its per-frame coordinate sums within sum_rel, its sampled trajectories
+#   within sample_px and NaN where the golden's are.
 TOLERANCES = {
     "vit": {"float32": 1e-4, "bfloat16_cosine": 0.995},
     "raft": {"flow": 1e-4},
@@ -69,6 +86,8 @@ TOLERANCES = {
     "refine": {"float32": {"refined": 1e-4, "track_px": 1e-3},
                "bfloat16": {"refined": 1e-2, "track_px": 1e-3}},
     "bb": {"equal": 0},
+    "traj": {"eps_px": 1e-3, "eps_half": 1e-4, "max_threshold_pixels": 2000,
+             "sample_px": 1e-3, "sum_rel": 1e-6},
 }
 
 
@@ -113,6 +132,8 @@ class Widths:
     bb_traj: int
     bb_chunk: int
     bb_slab: int
+    # f. stage 1's chaining: frames
+    traj_t: int
     # positions whose full values a golden keeps, per record
     samples: int
 
@@ -133,7 +154,7 @@ FULL = Widths(
     channels=(3, 64, 128, 256, 1024), train_t=8, batch=512, batch_n_frames=4,
     cyc=(4, 256), cl_pairs=4, bank_rows=20_000, bb_cap=512, bb_valid=400,
     refine_t=20, n_queries=256, query_frame=7, infer_chunk=4096,
-    bb_t=4, bb_c=1024, bb_traj=12_000, bb_chunk=8192, bb_slab=8192,
+    bb_t=4, bb_c=1024, bb_traj=12_000, bb_chunk=8192, bb_slab=8192, traj_t=8,
     samples=1024)
 
 TOY = Widths(
@@ -143,7 +164,7 @@ TOY = Widths(
     channels=(3, 8, 8, 8, 32), train_t=6, batch=32, batch_n_frames=3,
     cyc=(2, 16), cl_pairs=2, bank_rows=200, bb_cap=24, bb_valid=20,
     refine_t=17, n_queries=12, query_frame=2, infer_chunk=16,
-    bb_t=4, bb_c=64, bb_traj=300, bb_chunk=128, bb_slab=100,
+    bb_t=4, bb_c=64, bb_traj=300, bb_chunk=128, bb_slab=100, traj_t=5,
     samples=64)
 
 
@@ -496,8 +517,108 @@ def bb_inputs(wd: Widths, seed: int):
             "trajectories": _trajectories(rng, wd.bb_traj, wd.bb_t, wd.h, wd.w, 0.9)}
 
 
+# stage f: the background's motion a frame, the occluder's, the width of the
+# bands along the bottom and right edges where the background moves by
+# exactly BG_SHIFT (positions land on half-integers and on the frame's last
+# row and column exactly), the ramp beside them, the noise blocks' side
+BG_SHIFT, OCCLUDER_SHIFT = (1.5, 0.5), (-2.25, 1.25)
+TRAJ_BAND, TRAJ_RAMP, TRAJ_BLOCK = 12, 8, 16
+
+
+def _cell_field(rng, h: int, w: int, cell: int, y_off: float = 0.0,
+                x_off: float = 0.0) -> np.ndarray:
+    """H×W f64 in [-1, 1]: uniform values on a grid of ``cell``-pixel cells,
+    bilinear between them, read at the pixels shifted by (x_off, y_off)."""
+    g = rng.random((h // cell + 3, w // cell + 3)) * 2 - 1
+    y = (np.arange(h, dtype=np.float64)[:, None] + y_off + cell) / cell
+    x = (np.arange(w, dtype=np.float64)[None, :] + x_off + cell) / cell
+    y0, x0 = np.floor(y), np.floor(x)
+    wy, wx = y - y0, x - x0
+    yi, xi = y0.astype(np.int64), x0.astype(np.int64)
+    return ((g[yi, xi] * (1 - wx) + g[yi, xi + 1] * wx) * (1 - wy)
+            + (g[yi + 1, xi] * (1 - wx) + g[yi + 1, xi + 1] * wx) * wy)
+
+
+def _blocks(rng, h: int, w: int, shares, block: int = TRAJ_BLOCK):
+    """H×W×2 f64: a vector constant on each ``block``-pixel block, of a
+    random direction, its length drawn uniformly from the (low, high) of
+    ``shares`` [(share, low, high), ...] in those shares of the blocks, 0
+    elsewhere."""
+    gh, gw = -(-h // block), -(-w // block)
+    u = rng.random((gh, gw))
+    length = np.zeros((gh, gw))
+    edge = 0.0
+    for share, low, high in shares:
+        pick = (u >= edge) & (u < edge + share)
+        length[pick] = low + (high - low) * rng.random(int(pick.sum()))
+        edge += share
+    d = rng.standard_normal((gh, gw, 2))
+    d /= np.sqrt((d * d).sum(-1, keepdims=True))
+    v = d * length[..., None]
+    return np.repeat(np.repeat(v, block, 0), block, 1)[:h, :w]
+
+
+def traj_inputs(wd: Widths, seed: int):
+    """Stage 1's chaining inputs at T = ``wd.traj_t``: ``fwd`` and ``bwd``
+    ((T-1)×2×H×W f32, i→i+1 and i+1→i) and, for every start s, ``direct``
+    ((T-1-s)×H×W×2, the flow s→s+1+k in row k) and ``direct_masks``
+    ((T-1-s)×H×W). The background moves BG_SHIFT a frame plus a smooth
+    perturbation of up to 0.3 px (none in the bands along the bottom and
+    right edges, which it crosses); a rectangle moves OCCLUDER_SHIFT, so the
+    cycle check fails along its edges. Backward noise: 12% of the 16-pixel
+    blocks 1.4-1.6 px (cycle errors at the 1.5 px threshold), 8% 2-4 px.
+    Direct flows: the composed motion plus noise, 10% of the blocks 2.3-2.7
+    px (at the 2.5 px threshold), 5% 3-5 px; masks uniform in [0, 1] a
+    block, so the 0.2 gate is off in a fifth of them."""
+    rng = stage_rng(seed, "traj")
+    t, h, w = wd.traj_t, wd.h, wd.w
+    ys = np.arange(h, dtype=np.float64)[:, None]
+    xs = np.arange(w, dtype=np.float64)[None, :]
+    # 0 in the bands, 1 beyond the ramps beside them
+    window = (np.clip((w - TRAJ_BAND - xs) / TRAJ_RAMP, 0, 1)
+              * np.clip((h - TRAJ_BAND - ys) / TRAJ_RAMP, 0, 1))
+    bg = np.asarray(BG_SHIFT, np.float64)
+    occ = np.asarray(OCCLUDER_SHIFT, np.float64)
+    rect = (0.35 * w, 0.3 * h, 0.2 * w, 0.25 * h)  # x, y, width, height at frame 0
+
+    def occluder(i):
+        x0, y0 = rect[0] + occ[0] * i, rect[1] + occ[1] * i
+        return (xs >= x0) & (xs < x0 + rect[2]) & (ys >= y0) & (ys < y0 + rect[3])
+
+    fwd = np.empty((t - 1, 2, h, w), np.float32)
+    bwd = np.empty((t - 1, 2, h, w), np.float32)
+    motion = []  # the background's motion i→i+1 at each pixel of frame i, H×W×2
+    for i in range(t - 1):
+        state = rng.bit_generator.state
+        pert = [0.3 * window * _cell_field(rng, h, w, 32) for _ in range(2)]
+        rng.bit_generator.state = state  # the same field, read at the preimages
+        back = [0.3 * window * _cell_field(rng, h, w, 32, -bg[1], -bg[0]) for _ in range(2)]
+        m = np.stack([bg[0] + pert[0], bg[1] + pert[1]], -1)
+        f = np.where(occluder(i)[..., None], occ, m)
+        noise = window[..., None] * _blocks(rng, h, w, ((0.12, 1.4, 1.6), (0.08, 2.0, 4.0)))
+        b = np.stack([-bg[0] - back[0], -bg[1] - back[1]], -1) + noise
+        b = np.where(occluder(i + 1)[..., None], -occ, b)
+        fwd[i] = f.transpose(2, 0, 1)
+        bwd[i] = b.transpose(2, 0, 1)
+        motion.append(np.where(occluder(i)[..., None], occ, m))
+    direct, direct_masks = [], []
+    for s in range(t - 1):
+        rows = t - 1 - s
+        flows = np.empty((rows, h, w, 2), np.float32)
+        total = np.zeros((h, w, 2))
+        for k in range(rows):
+            total = total + motion[s + k]
+            noise = window[..., None] * _blocks(rng, h, w, ((0.10, 2.3, 2.7), (0.05, 3.0, 5.0)))
+            flows[k] = total + noise
+        blocks = _blocks(rng, h, w, ((1.0, 0.0, 1.0),))
+        direct.append(flows)
+        direct_masks.append(np.broadcast_to(
+            np.sqrt((blocks * blocks).sum(-1)), (rows, h, w)).astype(np.float32))
+    return {"fwd": fwd, "bwd": bwd, "direct": direct, "direct_masks": direct_masks}
+
+
 MAKERS = {"vit": vit_inputs, "raft": raft_inputs, "train": train_inputs,
-          "refine": refine_inputs, "bb": bb_inputs}
+          "refine": refine_inputs, "bb": bb_inputs, "traj": traj_inputs}
 
 
 def make(stage: str, wd: Widths, seed: int):
@@ -570,3 +691,75 @@ def record_bb(source_coords, target_coords, cos_sims, r, valid, h, w,
             "source_tok": tok(source_coords[upper]), "target_tok": tok(target_coords[upper]),
             "cos_1024": np.rint(cos_sims[upper] * 1024).astype(np.int16),
             "r": r[upper].astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# stage f: what a golden keeps of the chaining
+# ---------------------------------------------------------------------------
+
+# the chaining's settings: PreprocessConfig's defaults
+TRAJ_ARGS = {"threshold": 1.5, "direct_flow_threshold": 2.5, "min_trajectory_length": 2}
+
+
+def traj_row_starts(trajs: np.ndarray) -> np.ndarray:
+    """N×T×2 trajectories (start-major, NaN before the start) -> each row's
+    start frame (its first finite one)."""
+    return np.isfinite(trajs[..., 0]).argmax(1)
+
+
+def traj_ideal_rows(trajs: np.ndarray, starts: np.ndarray, h: int, w: int) -> np.ndarray:
+    """The rows that start in the bands along the bottom and right edges
+    (TRAJ_BAND, where every flow is exactly BG_SHIFT) and lie at start +
+    BG_SHIFT·k exactly at every frame they live. Where two implementations
+    both keep a row ideal, they decide its death (only by leaving the frame)
+    and round its half-integer positions alike, bit for bit."""
+    n, t, _ = trajs.shape
+    rows = np.arange(n)
+    p0 = trajs[rows, starts].astype(np.float64)
+    band = (p0[:, 0] >= w - TRAJ_BAND) | (p0[:, 1] >= h - TRAJ_BAND)
+    k = np.arange(t)[None, :] - starts[:, None]
+    ideal = p0[:, None, :] + k[..., None] * np.asarray(BG_SHIFT)
+    alive = np.isfinite(trajs[..., 0]) & (k >= 0)
+    return band & (~alive | (trajs.astype(np.float64) == ideal).all(-1)).all(1)
+
+
+def record_traj(trajs: np.ndarray, keep: np.ndarray, h: int, w: int, idx: np.ndarray,
+                exact: np.ndarray = None) -> Dict[str, np.ndarray]:
+    """One pass of the chaining -> what a golden keeps: per start frame s
+    (``keep``: S×H×W, the chaining's keep masks before eligibility and
+    occupancy) the keep mask, the kept pixels (its rows' start pixels) and
+    those of ``traj_ideal_rows``, bit-packed, the kept count, and per frame
+    the rows' NaN count and the float64 sums of their finite coordinates;
+    the same counts over the ``exact`` rows alone (by default the ideal
+    ones: rows, NaN per frame, half-integer coordinates per frame); the
+    total; the full values of rows ``idx`` (NaN past the last row)."""
+    n_starts, t = keep.shape[0], trajs.shape[1]
+    starts = traj_row_starts(trajs)
+    rows = np.arange(len(trajs))
+    p0 = trajs[rows, starts].astype(np.int64)
+    kept = np.zeros((n_starts, h * w), bool)
+    kept[starts, p0[:, 1] * w + p0[:, 0]] = True
+    ideal = traj_ideal_rows(trajs, starts, h, w)
+    ideal_px = np.zeros((n_starts, h * w), bool)
+    ideal_px[starts[ideal], p0[ideal, 1] * w + p0[ideal, 0]] = True
+    nan = ~np.isfinite(trajs[..., 0])
+    exact = ideal if exact is None else exact
+    half = (np.mod(np.nan_to_num(trajs), 1.0) == 0.5).any(-1) & ~nan
+    per = lambda x: np.stack([x[starts == s].sum(0) for s in range(n_starts)])
+    return {"keep": np.packbits(keep.reshape(n_starts, -1), axis=1),
+            "kept": np.packbits(kept, axis=1), "ideal": np.packbits(ideal_px, axis=1),
+            "count": np.bincount(starts, minlength=n_starts).astype(np.int64),
+            "nan": per(nan).astype(np.int64),
+            "sum": per(np.nan_to_num(trajs.astype(np.float64))),
+            "exact_count": np.bincount(starts[exact], minlength=n_starts).astype(np.int64),
+            "exact_nan": per(nan & exact[:, None]).astype(np.int64),
+            "exact_half": per(half & exact[:, None]).astype(np.int64),
+            "total": np.int64(len(trajs)), "idx": idx,
+            "vals": np.where((idx < len(trajs))[:, None, None],
+                             trajs[np.minimum(idx, len(trajs) - 1)], np.nan).astype(np.float32)}
+
+
+def unpack_masks(packed: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``record_traj``'s bit-packed S masks -> S×H×W bool."""
+    return np.unpackbits(packed, axis=1, count=h * w).astype(bool).reshape(-1, h, w)
+

@@ -25,7 +25,12 @@ the inputs of ``full_width_inputs.py``, stage by stage, one process:
   e. ``bb``: ``extract_best_buddies`` with the fused flow filter,
      ``closest_trajectory_grids`` and ``compute_bb_ambiguity`` on T = 4,
      C = 1024 at the 67×121 grid, 12,000 trajectories (two closest-grid
-     chunks) and more than 8,192 valid rows a target frame (two slabs).
+     chunks) and more than 8,192 valid rows a target frame (two slabs);
+  f. ``traj``: stage 1's chaining, ``preprocessing/trajectories.py
+     extract_trajectories_dual`` with ``direct_flow_fn`` (both passes, the
+     per-pass look-behind occupancy) on T = 8 synthetic flows at 854×476,
+     and each start frame's keep masks of ``_chain_dual`` and
+     ``_keep_mask``.
 
 Each file keeps what ``full_width_inputs.record_*`` keep of the outputs,
 and ``meta`` (JSON): the seed, the widths, every input's sha256, each
@@ -64,6 +69,7 @@ from dino_tracker_tpu.models import tracker as jtracker  # noqa: E402
 from dino_tracker_tpu.models import vit as jvit  # noqa: E402
 from dino_tracker_tpu.models import vit_convert  # noqa: E402
 from dino_tracker_tpu.preprocessing import best_buddies as jbb  # noqa: E402
+from dino_tracker_tpu.preprocessing import trajectories as jtraj  # noqa: E402
 from dino_tracker_tpu.training import contrastive as jcl  # noqa: E402
 from dino_tracker_tpu.training import cycle as jcycle  # noqa: E402
 from dino_tracker_tpu.training import losses as jlosses  # noqa: E402
@@ -300,8 +306,49 @@ def stage_bb(inp, wd: fw.Widths, seed: int):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# f. stage 1's chaining
+# ---------------------------------------------------------------------------
+
+def traj_keep_masks(inp, wd: fw.Widths):
+    """Each start frame's keep masks of both passes, before eligibility and
+    occupancy: ``_chain_dual`` and ``_keep_mask`` on the start's direct flows
+    padded to T-1 rows -> {"f": S×H×W, "u": S×H×W} bool."""
+    args = fw.TRAJ_ARGS
+    t, h, w = wd.traj_t, wd.h, wd.w
+    fwd, bwd = jnp.asarray(inp["fwd"]), jnp.asarray(inp["bwd"])
+    keep = {"f": [], "u": []}
+    for start in range(t - (args["min_trajectory_length"] - 1)):
+        n = t - 1 - start
+        dflows = jnp.zeros((t - 1, h, w, 2), jnp.float32).at[:n].set(inp["direct"][start])
+        dmasks = jnp.zeros((t - 1, h, w), jnp.float32).at[:n].set(inp["direct_masks"][start])
+        tls = jtraj._chain_dual(fwd, bwd, jnp.asarray(start, jnp.int32), dflows, dmasks,
+                                args["threshold"], args["direct_flow_threshold"])
+        for key, tl in zip("fu", tls):
+            keep[key].append(np.asarray(jtraj._keep_mask(tl, args["min_trajectory_length"])))
+    return {k: np.stack(v) for k, v in keep.items()}
+
+
+def stage_traj(inp, wd: fw.Widths, seed: int):
+    """Both passes of the chaining with the direct flows through
+    ``direct_flow_fn`` and the keep masks of every start -> records
+    ``{pass}/...`` (``full_width_inputs.record_traj``; pass f with the
+    direct-flow filter, u without)."""
+    args = fw.TRAJ_ARGS
+    trajs = jtraj.extract_trajectories_dual(
+        inp["fwd"], inp["bwd"], direct_flow_fn=lambda s: (inp["direct"][s],
+                                                          inp["direct_masks"][s]), **args)
+    keep = traj_keep_masks(inp, wd)
+    rec = {}
+    for key, tr in zip("fu", trajs):
+        idx = fw.sample_positions(seed, f"traj/{key}", len(tr), wd.samples)
+        for k, v in fw.record_traj(tr, keep[key], wd.h, wd.w, idx).items():
+            rec[f"{key}/{k}"] = v
+    return rec
+
+
 STAGE_FNS = {"vit": stage_vit, "raft": stage_raft, "train": stage_train,
-             "refine": stage_refine, "bb": stage_bb}
+             "refine": stage_refine, "bb": stage_bb, "traj": stage_traj}
 
 
 def golden_meta(stage, wd, seed, inp, rec, seconds):

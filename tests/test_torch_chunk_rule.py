@@ -158,3 +158,65 @@ def test_a_miss_names_every_row_and_its_series():
                                     [list(r.losses.T) for r in eager_runs()])
     assert series.startswith("loss_cyc per step: graph [") and "loss_of" not in series
     assert series.count("eager") == 3
+
+
+def test_a_point_whose_own_spread_is_below_the_steps_noise_is_held_to_the_steps():
+    """Three eager runs can agree on one point's distance far closer than
+    the step's points spread (an H100 run: 4.00128 / 4.00147 / 4.00131 where
+    the graph had 3.99959): the point is held to the step's median spread
+    where that is larger."""
+    gen = torch.Generator().manual_seed(0)
+    eager = eager_runs()
+    for r in eager:
+        r.dists[FLIP_STEP] += 2e-3 * torch.rand(P, generator=gen)
+        r.dists[FLIP_STEP, POINT] = THRESH + 1e-5  # the point: no spread of its own
+    graph = recorder("graph", kept_at_flip=True, dist_at_flip=THRESH - 2e-3)
+    steps, ok, line = chip_smoke.cycle_flips(graph, eager, THRESH)
+    assert steps == [FLIP_STEP] and ok, line
+    graph = recorder("graph", kept_at_flip=True, dist_at_flip=THRESH - 0.1)  # beyond it
+    assert not chip_smoke.cycle_flips(graph, eager, THRESH)[1]
+
+
+def test_a_point_moved_by_the_heads_choice_is_explained_by_it():
+    """A point kept otherwise far from the threshold (its cycle distance 3.57
+    px in the run, 8.33 in three eager runs that agree, as on an H100) is
+    explained where the run's hard argmax of it in the cycle filter's
+    backward call differs from the eager runs': the distance moved with that
+    choice, which argmax_flips judges. With no head record it is not."""
+    b = 4  # the flow term's batch before the filter's two calls
+    graph = recorder("graph", kept_at_flip=True, dist_at_flip=3.57)
+    eager = eager_runs(dist_at_flip=8.33)
+    for r in (graph, *eager):
+        r.argmax = torch.zeros((len(r.dists), b + 4 * P), dtype=torch.long)
+    graph.argmax[FLIP_STEP, b + P + POINT] = 7  # the backward call's argmax
+    assert not chip_smoke.cycle_flips(graph, eager, THRESH)[1]
+    steps, ok, line = chip_smoke.cycle_flips(graph, eager, THRESH, head_offset=b)
+    assert steps == [FLIP_STEP] and ok, line
+    graph.argmax[FLIP_STEP, b + P + POINT] = 0  # the head chose alike: a jump
+    assert not chip_smoke.cycle_flips(graph, eager, THRESH, head_offset=b)[1]
+
+
+def with_head(r, b=4):
+    """A recorder with a head record where every run chose alike."""
+    n = len(r.dists)
+    r.argmax = torch.zeros((n, b + 4 * P), dtype=torch.long)
+    r.top = torch.stack([torch.ones((n, b + 4 * P)), torch.zeros((n, b + 4 * P))], -1)
+    r.drawn_query = torch.ones((n, b + 4 * P), dtype=torch.bool)
+    return r
+
+
+def test_choices_after_the_first_are_listed_not_judged():
+    """After the run's first choice that no eager run took, its points no
+    longer share the eager runs' history: a later point kept otherwise far
+    from the threshold is listed and not judged; the same point at the
+    first such step is."""
+    eager = [with_head(r) for r in eager_runs()]
+    graph = with_head(graph_run())  # the flip at FLIP_STEP, at the threshold
+    later = FLIP_STEP + 3
+    graph.dists[later, 2], graph.kept[later, 2] = THRESH + 2.0, False  # a jump
+    steps, ok, line = chip_smoke.choice_flips(graph, eager, THRESH, 4)
+    assert steps == [FLIP_STEP, later] and ok, line
+    graph = with_head(recorder("graph"))  # no flip at FLIP_STEP: the jump is first
+    graph.dists[later, 2], graph.kept[later, 2] = THRESH + 2.0, False
+    steps, ok, line = chip_smoke.choice_flips(graph, eager, THRESH, 4)
+    assert steps == [later] and not ok

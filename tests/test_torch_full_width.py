@@ -15,7 +15,10 @@ them, on the CPU.
   (chip_smoke.py, the port on the CPU) run end to end at ``TOY`` widths, which
   cross the same chunk and slab edges: every stage within its tolerance.
 - Each compare helper fails on a perturbed output: one token, one flow pixel,
-  one gradient element, one track, one buddy.
+  one gradient element, one track, one buddy, one trajectory; stage 1's
+  chaining helper also fails on the port with a planted change: the cycle
+  threshold 1.5 → 1.49, the in-bounds test ``<=`` → ``<``, round-half-up in
+  the look-behind occupancy.
 """
 
 import json
@@ -115,7 +118,8 @@ def test_toy_stage_matches_jax(toy, stage):
 def _perturbed(stage, rec, out):
     """A copy of the port's output with one value moved far: one token of
     the f32 ViT, one flow pixel on the stride-4 grid, one sampled element of
-    a gradient, one track, one buddy's target."""
+    a gradient, one track, one buddy's target, one sampled trajectory's
+    last position."""
     if stage == "vit":
         feats = {d: {k: v.copy() for k, v in layers.items()} for d, layers in out[0].items()}
         x = feats["float32"][fw.TOY.vit_layers[0]]
@@ -137,6 +141,11 @@ def _perturbed(stage, rec, out):
         trajs = trajs.copy()
         trajs[5, 3, 0] += 0.5
         return {**out, "float32": (refined, trajs, occ, chunk)}
+    if stage == "traj":
+        trajs = out["trajs"]["f"].copy()
+        row = next(i for i in rec["f/idx"] if np.isfinite(trajs[i, -1, 0]))
+        trajs[row, -1, 0] += 0.5
+        return {**out, "trajs": {**out["trajs"], "f": trajs}}
     fields, closest = out
     fields = [f.copy() for f in fields]
     s, u = 0, 1
@@ -151,3 +160,50 @@ def test_compare_fails_on_a_perturbed_output(toy, stage):
     _, compare = chip_smoke.FULL_WIDTH_STAGES[stage]
     with pytest.raises(RuntimeError, match=f"full width {stage} differs"):
         compare(meta, rec, _perturbed(stage, rec, out))
+
+
+def _step_at(threshold=None, strict=False):
+    """``preprocessing/trajectories.py _step`` with a planted change: the
+    cycle threshold replaced, or the in-bounds test strict."""
+    from dino_tracker_tpu_torch.preprocessing import trajectories as traj
+
+    def step(flows_fwd, flows_bwd, idx, coords, thresh):
+        h, w = coords.shape[:2]
+        coords1 = coords + traj._warp(flows_fwd[idx], coords)
+        coords2 = coords1 + traj._warp(flows_bwd[idx], coords1)
+        upper = torch.tensor([w - 1.0, h - 1.0], device=coords.device)
+        below = coords1 < upper if strict else coords1 <= upper
+        in_bounds = ((coords1 >= 0.0) & below).all(dim=-1)
+        return coords1, (traj._norm(coords - coords2) < (threshold or thresh)) & in_bounds
+    return step
+
+
+def _occupancy_half_up(trajs, occupied, start, n_threads=0):
+    """The look-behind occupancy rounding half-integers up."""
+    t, h, w = occupied.shape
+    valid = ~np.isnan(trajs).any(-1)
+    cells = np.floor(np.nan_to_num(trajs) + 0.5).astype(np.int64)
+    xi, yi = np.clip(cells[..., 0], 0, w - 1), np.clip(cells[..., 1], 0, h - 1)
+    for f in range(start, t):
+        occupied[f, yi[f, valid[f]], xi[f, valid[f]]] = True
+
+
+@pytest.mark.parametrize("change", ["threshold 1.49", "strict in-bounds", "round half up"])
+def test_traj_compare_fails_on_a_planted_change(toy, change, monkeypatch):
+    """Phase 14's stage f on a port with one change planted: the cycle
+    threshold 1.5 → 1.49 (keep masks differ off the threshold), the
+    in-bounds test ``<=`` → ``<`` (rows ideal in both die a frame early
+    where they land on the last row or column exactly), round-half-up in
+    the occupancy (a later start spawns from other cells). The helper
+    raises on each."""
+    from dino_tracker_tpu_torch.preprocessing import trajectories as traj
+    meta, rec, _ = toy["traj"]
+    if change == "round half up":
+        monkeypatch.setattr(traj, "occupancy_update", _occupancy_half_up)
+    else:
+        monkeypatch.setattr(traj, "_step", _step_at(1.49) if change == "threshold 1.49"
+                            else _step_at(strict=True))
+    out = chip_smoke.full_width_traj(fw.make("traj", fw.TOY, 0), fw.TOY, CPU)
+    with pytest.raises(RuntimeError, match="full width traj differs"):
+        chip_smoke.compare_traj(meta, rec, out)
+

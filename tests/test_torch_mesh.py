@@ -174,6 +174,36 @@ def test_a_timeout_names_the_ranks_that_failed_before_it():
         mesh_lib.spawn(_fail_on_rank_1_then_hang, 2, "cpu", timeout=10)
 
 
+class _HangWhenUnpickled:
+    """An argument whose unpickling in a spawned rank sleeps: the rank hangs
+    before it joins the group."""
+
+    def __reduce__(self):
+        return time.sleep, (120,)
+
+
+def test_a_rank_that_never_joins_times_out_on_the_rendezvous(monkeypatch):
+    """Ranks that hang before they join the group: ``spawn`` raises once its
+    rendezvous limit has passed, whatever ``timeout`` the run has."""
+    monkeypatch.setattr(mesh_lib, "JOIN_TIMEOUT_S", 3.0)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="2 ranks did not all join the group in 3.0 s"):
+        mesh_lib.spawn(_fail_on_rank_1, 2, "cpu", args=(_HangWhenUnpickled(),),
+                       timeout=SPAWN_TIMEOUT)
+    assert time.monotonic() - t0 < SPAWN_TIMEOUT
+
+
+def test_a_rank_that_fails_before_joining_fails_spawn_at_once(monkeypatch):
+    """Ranks whose group cannot form (gloo given a network interface that
+    does not exist) fail before they join: ``spawn`` raises at once with
+    their tracebacks, without waiting out the rendezvous limit."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "no_such_interface0")
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="(?s)ranks failed.*rank 0:.*init_process_group"):
+        mesh_lib.spawn(_fail_on_rank_1, 2, "cpu", timeout=SPAWN_TIMEOUT)
+    assert time.monotonic() - t0 < SPAWN_TIMEOUT
+
+
 def test_fewer_cards_than_ranks_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="2 ranks need 2 CUDA device"):

@@ -14,9 +14,12 @@ its kink, infinities and NaN; the foreground lookup at and past the frame's
 edges and at NaN coordinates; the regularisers at zero and tiny norms; the
 mutual nearest neighbours with ties and NaN; the buddy InfoNCE and the
 cosine affinity with zero rows, in f32 and bf16, at temperatures 0.5 and
-0.01. One deliberate difference: where a buddy feature is exactly zero, the
+0.01. Two deliberate differences: where a buddy feature is exactly zero, the
 JAX gradient of its norm is NaN (even under a zero weight) and the port's 0;
-the step never samples an exactly zero feature.
+the step never samples an exactly zero feature. And the TAP-Vid adapter
+(``evaluation/tapvid.py``) asked for a video the benchmark does not hold
+raises a ``KeyError`` naming it, where the JAX one fails with a
+``TypeError`` on ``None``; for a video it holds both give the same points.
 
 Tolerances are those of the files each function's parity test lives in:
 buddies and validity equal, cos within 1e-5 of max|cos|, r within 1e-6;
@@ -332,3 +335,25 @@ def test_buddy_infonce_and_affinity_with_zero_rows_match_jax(dtype, temp):
                                               getattr(jnp, dtype)))
     np.testing.assert_allclose(aff, jaff, rtol=0, atol=1e-6)
     assert not aff[2].any()
+
+
+def test_tapvid_unknown_video_raises_key_error_where_jax_raises_type_error():
+    """The benchmark's query points of a video it holds, rescaled, equal the
+    JAX adapter's; for a video it does not hold the port raises a KeyError
+    naming it, the JAX adapter a TypeError (it subscripts the None its
+    lookup returns)."""
+    from dino_tracker_tpu.evaluation import tapvid as jtapvid
+    from dino_tracker_tpu_torch.evaluation import tapvid
+    bench = {"videos": [{"video_idx": 3, "h": 480, "w": 640,
+                         "query_points": {0: [(10.0, 20.0)], 5: [(1.5, 2.5), (600.0, 470.0)]},
+                         "target_points": {}, "occluded": {}}]}
+    for sizes in (None, (854, 476)):
+        assert (tapvid.get_query_points_from_benchmark_config(bench, 3, sizes)
+                == jtapvid.get_query_points_from_benchmark_config(bench, 3, sizes))
+    with pytest.raises(KeyError, match="video 7 is not in the benchmark"):
+        tapvid.get_query_points_from_benchmark_config(bench, 7)
+    with pytest.raises(TypeError):
+        jtapvid.get_query_points_from_benchmark_config(bench, 7, (854, 476))
+    with pytest.raises(TypeError):
+        jtapvid.get_query_points_from_benchmark_config(bench, 7)
+
