@@ -353,7 +353,15 @@ def check_devices(n_devices: int, device_type: str, share_device: bool = False):
 JOIN_TIMEOUT_S = 600.0
 
 
-def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
+def cpu_rank_threads(n: int, parent_threads: int) -> int:
+    """The intra-op threads of each of ``n`` CPU ranks spawned from a process
+    that runs at ``parent_threads``: the ranks share their parent's budget,
+    not the machine's, so ranks started beside other busy processes do not
+    oversubscribe the cores. At least one."""
+    return max(1, parent_threads // n)
+
+
+def _rank_main(rank, fn, n, device_type, share_device, workdir, parent_threads, args):
     joined = False
     try:
         if device_type == "cuda":
@@ -363,7 +371,7 @@ def _rank_main(rank, fn, n, device_type, share_device, workdir, args):
             backend = "gloo" if share_device else "nccl"
         else:
             device, backend = torch.device("cpu"), "gloo"
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+            torch.set_num_threads(cpu_rank_threads(n, parent_threads))
         # the ranks share one host: their sockets stay on the loopback interface
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -407,10 +415,11 @@ def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
     rank order.
 
     Rank r binds ``cuda:r`` (NCCL), or with ``share_device`` every rank binds
-    ``cuda:0`` (gloo); ``device_type="cpu"`` runs gloo ranks on
-    the CPU. Rendezvous is a ``FileStore`` in a temporary directory: no port,
-    no network. ``fn`` and ``args`` must pickle (``fn`` a module-level
-    function). A rank that raises makes ``spawn`` stop the others and raise,
+    ``cuda:0`` (gloo); ``device_type="cpu"`` runs gloo ranks on the CPU,
+    each at ``cpu_rank_threads(n_devices, torch.get_num_threads())`` intra-op
+    threads, the caller's count taken when ``spawn`` is called. Rendezvous is
+    a ``FileStore`` in a temporary directory: no port, no network. ``fn`` and
+    ``args`` must pickle (``fn`` a module-level function). A rank that raises makes ``spawn`` stop the others and raise,
     at once, whether or not every rank has joined the group; so does a run
     of ``fn`` longer than ``timeout`` seconds, counted from the moment the
     last rank joined (starting a process, importing torch and the caller's
@@ -429,7 +438,8 @@ def spawn(fn: Callable, n_devices: int, device_type: str = "cuda",
     try:
         ctx = torch.multiprocessing.start_processes(
             _rank_main, nprocs=n_devices, join=False, start_method="spawn",
-            args=(fn, n_devices, device_type, share_device, workdir, tuple(args)))
+            args=(fn, n_devices, device_type, share_device, workdir,
+                  torch.get_num_threads(), tuple(args)))
         try:
             start = time.monotonic()
             while not joined():  # the rendezvous; a failed rank raises in join

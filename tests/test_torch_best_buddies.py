@@ -25,6 +25,7 @@ from dino_tracker_tpu_torch import structures
 from dino_tracker_tpu_torch.ops import nms
 from dino_tracker_tpu_torch.preprocessing import best_buddies as bb_lib
 from dino_tracker_tpu_torch.utils.coords import bb_meshgrid
+from test_torch_threads import one_thread  # noqa: F401
 
 COS_TOL, R_TOL = 1e-5, 1e-6
 # a 9×13 token grid (n = 117) and the 5×7 one of tests/test_best_buddies.py

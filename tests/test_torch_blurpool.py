@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dino_tracker_tpu_torch.ops import blurpool as bp
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -28,6 +28,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from dino_tracker_tpu_torch.training.train import METRICS  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 # loss_cyc step by step (graph, eager A, B, C), phase 5, gates on
 LOSS_CYC = {

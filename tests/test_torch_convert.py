@@ -19,6 +19,7 @@ from dino_tracker_tpu.training import train as jtrain
 from dino_tracker_tpu_torch import convert
 from dino_tracker_tpu_torch.config import TrackerConfig
 from dino_tracker_tpu_torch.models.tracker import Tracker
+from test_torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHANNELS = (3, 4, 4, 4, 16)

@@ -36,6 +36,7 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 import full_width_inputs as fw  # noqa: E402
 import gen_full_width_golden as gen  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -29,6 +29,7 @@ from dino_tracker_tpu_torch.cli import inference_benchmark, inference_grid
 from dino_tracker_tpu_torch.inference.infer import ModelInference
 from dino_tracker_tpu_torch.models import tracker
 from test_torch_model_slice import H, W, configs, jax_weights, torch_model
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -52,22 +53,23 @@ QUERIES = np.array([[20.0, 30.0, 0.0], [50.0, 40.0, 2.0], [70.0, 10.0, 4.0],
                     [90.0, 60.0, 1.0], [5.0, 5.0, 3.0]], np.float32)
 
 
-def jax_infer(params, stats, video, dino, jcfg, q):
+def jax_inference(params, stats, video, dino, jcfg):
+    """The JAX package's refined cache and its inference runtime over it."""
     refined = jtracker.cache_refined_embeddings(
         params, stats, jnp.asarray(video), jnp.asarray(dino), jcfg,
         frames_chunk=4)
     mi = JModelInference(params=params, refined_features=refined, cfg=jcfg,
                          anchor_cosine_similarity_threshold=0.7,
                          cosine_similarity_threshold=0.6, chunk=64)
-    return np.asarray(refined), mi.infer(q)
+    return np.asarray(refined), mi
 
 
 def test_slice_matches_jax():
     jcfg, pcfg = configs()
     params, stats = jax_weights(11)
     video, dino = scene(pcfg.delta_channels[-1])
-    refined_j, (trajs_j, occ_j) = jax_infer(params, stats, video, dino, jcfg,
-                                            QUERIES)
+    refined_j, mi_j = jax_inference(params, stats, video, dino, jcfg)
+    trajs_j, occ_j = mi_j.infer(QUERIES)
 
     model = torch_model(params, stats, pcfg)
     refined = tracker.cache_refined_embeddings(
@@ -142,8 +144,8 @@ def video_dir(tmp_path_factory):
     queries = {0: np.array([[20.0, 30.0, 0.0], [50.0, 10.0, 0.0]], np.float32),
                3: np.array([[75.0, 50.0, 3.0]], np.float32)}
     grid = video_io.get_grid_query_points((H, W), interval=10)
-    expect = {k: jax_infer(params, stats, loaded, dino, jcfg, q)[1]
-              for k, q in [*queries.items(), ("grid", grid)]}
+    _, mi = jax_inference(params, stats, loaded, dino, jcfg)
+    expect = {k: mi.infer(q) for k, q in [*queries.items(), ("grid", grid)]}
     return root, expect
 
 

@@ -37,6 +37,7 @@ from dino_tracker_tpu_torch.parallel import launcher as plauncher
 from dino_tracker_tpu_torch.utils import video_io
 from test_torch_preprocess_run import (ARTIFACTS, H, T, W, video_dir, weights,  # noqa: F401
                                        write_checkpoints_and_config, write_train_config)
+from test_torch_threads import one_thread  # noqa: F401
 
 LAUNCHERS = pytest.mark.parametrize("launcher", [jlauncher, plauncher], ids=["jax", "port"])
 

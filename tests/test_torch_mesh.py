@@ -20,6 +20,7 @@ from dino_tracker_tpu_torch.cli import inference_benchmark, inference_grid
 from dino_tracker_tpu_torch.cli import train as train_cli
 from dino_tracker_tpu_torch.models import nn as pnn
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+from test_torch_threads import one_thread  # noqa: F401
 
 N_ROWS, C = 7, 3      # the gathered axis: uneven over 2 and 3 ranks
 BN_SHAPE = (5, 4, 6, 3)  # N×H×W×C frames for BatchNorm, uneven too

@@ -30,6 +30,7 @@ import torch
 from dino_tracker_tpu_torch.cli import inference_benchmark
 from dino_tracker_tpu_torch.cli import train as train_cli
 from dino_tracker_tpu_torch.training import checkpoint as ckpt
+from test_torch_threads import one_thread  # noqa: F401
 
 @pytest.fixture(scope="module")
 def video_dirs(tmp_path_factory):

@@ -46,6 +46,7 @@ from dino_tracker_tpu_torch.models import tracker
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
 from dino_tracker_tpu_torch.training import checkpoint as ckpt
 from dino_tracker_tpu_torch.training import contrastive, cycle, train
+from test_torch_threads import one_thread  # noqa: F401
 
 SPAWN_TIMEOUT = 240
 RECORDED_STEPS = 3

@@ -20,6 +20,7 @@ from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import blurpool as bp
 from dino_tracker_tpu_torch.ops import flash_attention as fa
 from dino_tracker_tpu_torch.ops import window_gather as wg
+from test_torch_threads import one_thread  # noqa: F401
 
 STREAM = 0x5EED
 

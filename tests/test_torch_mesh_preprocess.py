@@ -50,6 +50,7 @@ from dino_tracker_tpu_torch.preprocessing.flow import RaftFlowEngine
 from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
 from dino_tracker_tpu_torch.structures import BBData, load_bb_data
 from dino_tracker_tpu_torch.utils import video_io
+from test_torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SPAWN_TIMEOUT = 300
@@ -444,7 +445,7 @@ def test_preprocess_cli_on_two_ranks_writes_what_one_device_writes(tmp_path, inp
     threads = torch.get_num_threads()
     # one device on a rank's thread count: the CPU's GEMMs sum in another
     # order on another count, and a feature then rounds to another f16
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // 2))
+    torch.set_num_threads(mesh_lib.cpu_rank_threads(2, threads))
     try:
         for w, root in roots.items():
             write_frames(os.path.join(root, "video"), payload["frames"])

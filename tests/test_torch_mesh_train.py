@@ -42,6 +42,7 @@ from dino_tracker_tpu_torch.models import tracker
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
 from dino_tracker_tpu_torch.training import cycle, train
 from dino_tracker_tpu_torch.training.sampler import sample_batch
+from test_torch_threads import one_thread  # noqa: F401
 
 SPAWN_TIMEOUT = 120
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 0.35)}  # (loss rtol, grad)

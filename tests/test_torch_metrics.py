@@ -20,6 +20,7 @@ from dino_tracker_tpu.cli import eval_benchmark as jeval_cli
 from dino_tracker_tpu.evaluation import metrics as jmetrics
 from dino_tracker_tpu_torch.cli import eval_benchmark as eval_cli
 from dino_tracker_tpu_torch.evaluation import metrics
+from test_torch_threads import one_thread  # noqa: F401
 
 
 def assert_metrics_equal(got, want):

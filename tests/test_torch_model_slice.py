@@ -23,6 +23,7 @@ from dino_tracker_tpu_torch import convert
 from dino_tracker_tpu_torch.config import TrackerConfig
 from dino_tracker_tpu_torch.models import nn as pnn
 from dino_tracker_tpu_torch.models import tracker
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

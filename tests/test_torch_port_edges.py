@@ -36,6 +36,7 @@ from dino_tracker_tpu_torch.models import tracker
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
 from dino_tracker_tpu_torch.preprocessing import best_buddies as bb_lib
 from dino_tracker_tpu_torch.training import contrastive, cycle, losses
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -45,6 +45,7 @@ from test_torch_trajectories import video, write_frames
 from test_torch_vit import SMALL, jax_cfg, models
 from test_torch_vit_attention import dinov2_state_dict
 from test_torch_vit_preprocess import assert_masks_match
+from test_torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 T, H, W = 5, 42, 56

@@ -9,6 +9,7 @@ import pytest
 
 from dino_tracker_tpu.utils import profiling as jprofiling
 from dino_tracker_tpu_torch.utils import profiling
+from test_torch_threads import one_thread  # noqa: F401
 
 SEQUENCE = ("preprocess/trajectories", "train/steps_gates_off", "preprocess/trajectories",
             "inference/query_frame_0", "train/steps_gates_off", "preprocess/trajectories")

@@ -35,6 +35,7 @@ import torch
 from dino_tracker_tpu_torch.models import raft as praft
 from dino_tracker_tpu_torch.ops import window_gather as pwg
 from dino_tracker_tpu_torch.utils import sampling as psampling
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

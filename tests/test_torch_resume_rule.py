@@ -30,6 +30,7 @@ import chip_smoke  # noqa: E402
 from dino_tracker_tpu_torch.training import checkpoint, train  # noqa: E402
 from test_torch_model_slice import configs  # noqa: E402
 from test_torch_train_step import CFG, CHANNELS, port_data, video_arrays  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 # gates at 2, the checkpoint at 4, the end at 7: the resumed steps run the
@@ -37,16 +38,6 @@ CPU = torch.device("cpu")
 LONG = dataclasses.replace(CFG, total_iterations=7, checkpoint_interval=4,
                            apply_cyc_after=2, apply_cl_ref_after=2, cl_points_per_pair=16)
 AT, END, LOG = LONG.checkpoint_interval, LONG.total_iterations, 100
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The tiny Trainer's ops are small: one thread runs them as fast, and
-    beside other test processes it does not oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from dino_tracker_tpu_torch.config import TrackerConfig, TrainConfig
 from dino_tracker_tpu_torch.models import tracker
 from dino_tracker_tpu_torch.training import checkpoint as ckpt
 from dino_tracker_tpu_torch.utils import video_io
+from test_torch_threads import one_thread  # noqa: F401
 
 H, W = 70, 98
 CHANNELS = (3, 4, 4, 4, 16)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from dino_tracker_tpu_torch.training import sampler
+from test_torch_threads import one_thread  # noqa: F401
 
 W, H = 854, 476
 

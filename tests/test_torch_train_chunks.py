@@ -30,6 +30,7 @@ from dino_tracker_tpu_torch.training import checkpoint as ckpt
 from dino_tracker_tpu_torch.training import sampler, train
 from test_torch_model_slice import configs
 from test_torch_train_step import CFG, CHANNELS, port_data, video_arrays
+from test_torch_threads import one_thread  # noqa: F401
 
 GATES = {"at 0": (0, 0), "mid-run": (30, 45), "never": (10**6, 10**6)}
 

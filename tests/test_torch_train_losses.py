@@ -29,6 +29,7 @@ from dino_tracker_tpu.training import losses as jlosses
 from dino_tracker_tpu_torch.structures import BBData
 from dino_tracker_tpu_torch.training import contrastive, cycle, losses
 from test_torch_model_slice import H, W, configs, torch_model
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -63,6 +63,7 @@ from test_torch_train_losses import N_FEAT, weights
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "scripts"))
 from gen_full_width_golden import jax_step  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -40,6 +40,7 @@ from dino_tracker_tpu_torch.preprocessing import flow as pflow
 from dino_tracker_tpu_torch.preprocessing import trajectories as ptraj
 from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
 from dino_tracker_tpu_torch.utils import native_traj, video_io
+from test_torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

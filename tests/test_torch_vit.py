@@ -30,6 +30,7 @@ from dino_tracker_tpu.models.vit_convert import convert_dinov2_state_dict
 from dino_tracker_tpu_torch.models import vit as pvit
 from dino_tracker_tpu_torch.models import vit_convert
 from test_torch_vit_attention import dinov2_state_dict
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

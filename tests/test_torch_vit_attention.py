@@ -44,6 +44,7 @@ from dino_tracker_tpu_torch.models import vit_convert
 from dino_tracker_tpu_torch.ops import attention as pattn
 from dino_tracker_tpu_torch.ops import flash_attention as pflash
 from dino_tracker_tpu_torch.preprocessing import fg_mask
+from test_torch_threads import one_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -29,6 +29,7 @@ from dino_tracker_tpu_torch.preprocessing import fg_mask, split_fg_bg
 from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
 from dino_tracker_tpu_torch.utils import video_io
 from test_torch_vit import SMALL, jax_cfg, models
+from test_torch_threads import one_thread  # noqa: F401
 
 NEAR = 1e-5  # |comp0 - threshold| below this may flip between the packages
 

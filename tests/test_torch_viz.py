@@ -27,6 +27,7 @@ from dino_tracker_tpu_torch.cli import visualize as visualize_cli  # noqa: E402
 from dino_tracker_tpu_torch.config import add_config_paths  # noqa: E402
 from dino_tracker_tpu_torch.utils import video_io  # noqa: E402
 from dino_tracker_tpu_torch.visualization import viz  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 T, H, W = 12, 60, 80
 
