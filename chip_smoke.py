@@ -188,11 +188,14 @@ Phases, one line or more each (any failure raises and exits non-zero):
      data-parallel step (collectives included) once a set of gates and
      replays it (2 captures, 38 replays a rank); then on every rank, from one
      state at count 30, phase 5's comparison of 25 replays against 25 eager
-     mesh steps three times under its rule (train_chunks), the replicas'
-     parameters and BN statistics bitwise equal after the replays (a hash
-     each), K1-fwd and K1-bwd 3 each a replay in a 5-step trace, and, in
-     turns, replayed and eager ms/iter, the busy share, NCCL's share of
-     the device time and the busy share without NCCL under the profiler,
+     mesh steps three times under its rule (train_chunks: the whole step's
+     discrete choices judged from every rank's share, and where the graph
+     took one no eager run took, every rank held to its eager G), the
+     replicas' parameters and BN statistics bitwise equal after the replays
+     and after G (a hash each), K1-fwd and K1-bwd 3 each a replay in a
+     5-step trace, and, in turns, replayed and eager ms/iter, the busy share,
+     NCCL's share of the device time and the busy share without NCCL under
+     the profiler,
      the capture's time and peak memory, for every rank and the slowest;
      then, in processes of their own, a capture that fails on rank 1 alone
      after the forward's collectives (an .item() injected there) must raise
@@ -1146,16 +1149,144 @@ def choice_flips(got, eager, thresh, head_offset):
     return steps, c_ok and a_ok, f"{c_line}; {a_line}"
 
 
-def loss_rules(got, eager, thresh, head_offset=None):
+def head_columns(cfg, world):
+    """For each of ``world`` ranks, the columns of one device's
+    ``StepRecorder`` head rows (argmax, top, drawn_query: HEAD_CALLS in
+    order) that the rank's own row fills, in the order it fills them: its
+    rows of the flow term's batch (``mesh.split_rows``), its share of every
+    pair's points in the cycle filter's forward and backward calls (the
+    point axis split as ``mesh.split_sizes`` splits it, ``cycle.py``), then
+    its share of every block of the cycle loss's sources and targets."""
+    from dino_tracker_tpu_torch.parallel.mesh import split_sizes
+    b, g, k = cfg.train_batch_size, cfg.cyc_n_frames, cfg.cyc_batch_size_per_frame
+    p = g * k
+    rb, rk = (np.cumsum([0] + split_sizes(n, world)) for n in (b, k))
+    cols = []
+    for r in range(world):
+        blocks = lambda first, n: [first + j * k + i for j in range(n)
+                                   for i in range(rk[r], rk[r + 1])]
+        cols.append(torch.tensor([*range(rb[r], rb[r + 1]), *blocks(b, g),
+                                  *blocks(b + p, g), *blocks(b + 2 * p, 2 * g)]))
+    return cols
+
+
+def whole_record(rows, cfg):
+    """Every rank's ``StepRecorder.rows`` of one run, in rank order -> the
+    run's record in one device's layout, every buffer of RECORDED: the head
+    calls' columns put back where one device has them (``head_columns``),
+    the loss terms the sum of the ranks' shares (as ``reduce_metrics``
+    sums them), the rest rank 0's (the batches, the rates, the cycle
+    filter's points, which every rank computes after its gather, and the
+    gradients' norms after their all-reduce)."""
+    out = {k: getattr(rows[0], k) for k in RECORDED}
+    out["losses"] = torch.stack([r.losses for r in rows]).sum(0)
+    cols = head_columns(cfg, len(rows))
+    for k in ("argmax", "top", "drawn_query"):
+        out[k] = getattr(rows[0], k).clone()
+        for c, r in zip(cols, rows):
+            out[k][:, c] = getattr(r, k)[:, :len(c)]
+    return types.SimpleNamespace(**out)
+
+
+def chunk_choices(got, eager, cfg, mesh=None):
+    """The discrete choices of the run ``got`` that no ``eager`` run took,
+    judged by ``choice_flips`` on the records in one device's layout
+    (``StepRecorder.rows``, one row a step; the flow term's batch the head
+    offset). On a ``mesh`` every rank's rows of every run are gathered over
+    its host group (gloo, never the NCCL communicator) and rebuilt
+    (``whole_record``): every rank reaches the same verdict from the same
+    data, and ``mesh.agree`` holds the ranks to it, so that every rank runs
+    eager G or none does. -> namespace of ``steps`` (with such a choice),
+    ``ok`` (each at the first such step explained), ``line``, ``whole``
+    ((got, [eager]) in one device's layout), ``first`` and ``took`` (the
+    ranks whose own share held such a choice at the first such step, at
+    any), ``misses`` (a run whose cycle filter, drawn, kept or dists,
+    differs between ranks: named by run and rank)."""
+    from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
+    runs = [got, *eager]
+    world = mesh_lib.world_size(mesh)
+    every = [[types.SimpleNamespace(**{k: getattr(r, k).cpu() for k in RECORDED})]
+             for r in runs]
+    if world > 1:
+        import torch.distributed as dist
+        gathered = [None] * world
+        host = mesh.host_group if mesh.host_group is not None else mesh.group
+        dist.all_gather_object(gathered, [vars(r[0]) for r in every], group=host)
+        every = [[types.SimpleNamespace(**rank[j]) for rank in gathered]
+                 for j in range(len(runs))]
+    error = out = None
+    try:
+        names = ["graph"] + [f"eager {chr(65 + j)}" for j in range(len(eager))]
+        misses = []
+        for name, ranks in zip(names, every):
+            for r, x in enumerate(ranks[1:], 1):
+                for k in ("drawn", "kept", "dists"):
+                    at = (getattr(x, k) != getattr(ranks[0], k)).flatten(1).any(1)
+                    if at.any():
+                        misses.append(f"{name}: rank {r}'s {k} differs from rank 0's at "
+                                      f"steps {at.nonzero().flatten().tolist()}")
+        whole = [whole_record(ranks, cfg) for ranks in every]
+        w, e = whole[0], whole[1:]
+        steps, ok, line = choice_flips(w, e, cfg.cyc_thresh, cfg.train_batch_size)
+        owner = torch.empty(w.argmax.shape[1], dtype=torch.long)
+        for r, c in enumerate(head_columns(cfg, world)):
+            owner[c] = r
+        kept_owner = owner[cfg.train_batch_size:][:w.kept.shape[1]]  # the filter's forward
+
+        def ranks_at(k):  # whose share held a choice that no eager run took at step k
+            moved = w.argmax[k] >= 0
+            for x in e:
+                moved &= w.argmax[k] != x.argmax[k]
+            kept = torch.zeros_like(w.kept[k])
+            if not any(torch.equal(w.kept[k], x.kept[k]) for x in e):
+                for x in e:
+                    kept |= w.kept[k] != x.kept[k]
+            return set(owner[moved].tolist()) | set(kept_owner[kept].tolist())
+
+        out = types.SimpleNamespace(
+            steps=steps, ok=ok, line=line, whole=(w, e), misses=misses,
+            first=sorted(ranks_at(steps[0])) if steps else [],
+            took=sorted(set().union(*(ranks_at(k) for k in steps))))
+    except Exception:  # a fault of this rank's verdict, raised on every rank
+        error = traceback.format_exc()
+    mesh_lib.agree(error, None if out is None else (out.steps, out.ok, out.first, out.took),
+                   mesh, "train chunks, the discrete choices' verdict")
+    return out
+
+
+def follow_run(model, lr, step, n, cfg, dev, rec):
+    """Eager G: ``n`` calls of ``step`` (one eager train step of ``model``
+    each; on a mesh this rank's) taking the discrete choices that ``rec``
+    (this rank's own ``StepRecorder.rows`` of another run, one row a step)
+    recorded (``FollowChoices``) -> (G's own recorder, its parameters, its
+    BN statistics)."""
+    with StepRecorder(n, cfg, dev, lr) as own, FollowChoices(rec):
+        for _ in range(n):
+            step()
+    return (own, *model_state(model)[1::2])
+
+
+def digest(tensors):
+    """A sha256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def loss_rules(got, eager, thresh, head_offset=None, whole=None):
     """The loss terms' rule on ``StepRecorder``s of the graph run and the
     eager runs: every term's series of step values under ``spread_rows``
     (floor CHUNK_LOSS_FLOOR of the term), those of CYCLE_TERMS without the
     steps at which the graph's cycle filter kept other points than every
     eager run, each such step explained by ``cycle_flips`` (with
-    ``head_offset``) -> (the cycle filter's (ok, line), the losses'
+    ``head_offset``; on the records ``whole``, (graph, [eager runs]) in one
+    device's layout, where given: on a mesh ``got`` and ``eager`` hold this
+    rank's shares) -> (the cycle filter's (ok, line), the losses'
     ``spread_summary``, the rows over every step, the rows as held)."""
     from dino_tracker_tpu_torch.training.train import METRICS
-    flips, flips_ok, flips_line = cycle_flips(got, eager, thresh, head_offset)
+    flips, flips_ok, flips_line = cycle_flips(*(whole or (got, eager)), thresh, head_offset)
     steady = [k for k in range(len(got.losses)) if k not in flips]
     series = lambda rec, cut: [x[steady] if cut and name in CYCLE_TERMS else x
                                for name, x in zip(METRICS, rec.losses.T)]
@@ -1259,15 +1390,20 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     statistics' change over the chunk, CHUNK_LOSS_FLOOR of a loss term
     (``spread_rows``, ``params_summary``; CYCLE_TERMS without the steps at
     which the graph's cycle filter kept other points than every eager run,
-    each explained by ``cycle_flips``, ``loss_rules``). With no mesh, where
-    the graph took a discrete choice that no eager run took (``choice_flips``:
-    the cycle filter's kept points, the head's hard argmax, each of which
-    must lie at its threshold within the runs' noise), a fourth eager run G
-    from the same state takes the graph's recorded choices at every step
-    (``FollowChoices``), and the parameters and BN statistics are held to G
-    alone (within the same factor of A-C's spread and the same floor): a
-    choice taken otherwise moves the head's small-gradient weights through
-    Adam far beyond what three runs that agreed on it spread. No host sync under
+    each explained by ``cycle_flips``, ``loss_rules``). Where the graph took
+    a discrete choice that no eager run took (``chunk_choices``, the whole
+    step's choices: on a mesh every rank's share gathered and judged in one
+    device's layout; ``choice_flips``: the cycle filter's kept points, the
+    head's hard argmax, each of which must lie at its threshold within the
+    runs' noise), a fourth eager run G from the same state takes the
+    graph's recorded choices at every step (``follow_run``; on a mesh every
+    rank runs G, each taking its own share of the argmax and the whole kept
+    set), and the loss terms (this rank's shares), parameters and BN
+    statistics are held to G alone (within the same factor of A-C's spread
+    and the same floor): a choice taken otherwise moves the head's
+    small-gradient weights through Adam far beyond what three runs that
+    agreed on it spread. On a mesh a run whose cycle filter differs between
+    ranks is a miss of its own. No host sync under
     torch.cuda.set_sync_debug_mode("error") over a replayed chunk; the card
     ran K1-fwd and K1-bwd 3 times each a replay in a trace. A miss names
     every row of the summary that missed and, for a loss term, its values
@@ -1280,8 +1416,9 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
     time. -> {gates: {"rule": the verdicts' line, "lr_step", "capture_ms",
     "peak_capture", "peak_eager_a", "times": {graphed: [ms/iter]}, "peaks":
     {graphed: bytes}, "busy": {graphed: (ms/iter, busy, nccl share)},
-    "digest": a hash of the graph run's parameters and BN statistics}}."""
-    import hashlib
+    "digest": a hash of the graph run's parameters and BN statistics,
+    "digest_g": eager G's (None where G did not run), "took": the ranks
+    whose share took a choice no eager run took}}."""
     from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
     from dino_tracker_tpu_torch.training import train
     every, gamma = cfg.apply_scheduler_every, cfg.scheduler_gamma
@@ -1343,18 +1480,13 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             del model, runner
         a, g = runs["eager A"], runs["graph"]
         eager_recs = [runs[k][0] for k in ("eager A", "eager B", "eager C")]
-        head_offset = cfg.train_batch_size if mesh is None else None
-        # on a mesh each rank records its share of the head's calls: the
-        # cycle filter's rule alone (loss_rules), as before
-        choices = (choice_flips(g[0], eager_recs, cfg.cyc_thresh, head_offset)
-                   if mesh is None else None)
+        choices = chunk_choices(g[0], eager_recs, cfg, mesh)
         held_to = None  # eager G: (its recorder, parameters, BN statistics)
-        if mesh is None and choices[0]:  # from the state, the graph's choices
+        if choices.steps:  # from the state, the graph's choices (this rank's)
             model, runner = fresh(start)
-            with StepRecorder(CHUNK_STEPS, cfg, dev, runner.sched.lr) as rec, \
-                    FollowChoices(g[0]):
-                chunk(runner, gates, False)
-            held_to = (rec, *model_state(model)[1::2])
+            held_to = follow_run(model, runner.sched.lr,
+                                 lambda: runner.step(data, gates, gates), CHUNK_STEPS, cfg,
+                                 dev, g[0])
             del model, runner
         reserved = torch.cuda.memory_reserved(dev)
         note(f"the verdict: {memory_line(dev)}")
@@ -1377,9 +1509,11 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 misses.append(f"the schedule inside the graph: rates {lrs}, expected {want}, "
                               f"count {g[5]}")
             eager = [runs[k] for k in ("eager A", "eager B", "eager C")]
+            misses += choices.misses
             if held_to is None:  # loss_rules: CYCLE_TERMS without the cycle flips
-                filtered, losses_held, every_step, loss_rows = loss_rules(
-                    g[0], eager_recs, cfg.cyc_thresh, head_offset)
+                losses_held, every_step, loss_rows = loss_rules(
+                    g[0], eager_recs, cfg.cyc_thresh, cfg.train_batch_size,
+                    choices.whole)[1:]
             else:  # every term's series held to eager G's
                 every_step = loss_rows = spread_rows(
                     train.METRICS, list(g[0].losses.T), [list(r.losses.T) for r in eager_recs],
@@ -1388,10 +1522,11 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             ref = (lambda j: None) if held_to is None else (lambda j: held_to[j])
             bn_rows = spread_rows(b_names, g[2], [r[2] for r in eager],
                                   from_state(start, b_names), ref=ref(2))
-            verdicts = [filtered if choices is None else (choices[1], choices[2] + (
-                            "; held to " + (f"eager G, which took the graph's choices at "
-                                            f"steps {choices[0]}" if held_to is not None
-                                            else "eager A-C"))),
+            first = f" (the first in rank {', '.join(map(str, choices.first))}'s share)"
+            verdicts = [(choices.ok, choices.line + "; held to " + (
+                            f"eager G, which took the graph's choices at steps "
+                            f"{choices.steps}{first if mesh_lib.is_parallel(mesh) else ''}"
+                            if held_to is not None else "eager A-C")),
                         losses_held,
                         params_summary(p_names, g[1], [r[1] for r in eager],
                                        from_state(start, p_names), CHUNK_STEPS,
@@ -1407,10 +1542,6 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             misses.append(traceback.format_exc())
         mesh_lib.agree("; ".join(misses) or None, None, mesh,
                        f"train chunks, gates {gates}")
-        digest = hashlib.sha256()
-        for x in g[1] + g[2]:
-            digest.update(x.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
-
         note(f"compared: {'; '.join(v[1] for v in verdicts)}")
         graph, eager = kept["graph"], kept["eager C"]
         prev = torch.cuda.get_sync_debug_mode()
@@ -1430,7 +1561,9 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
             rule=("; ".join(v[1] for v in verdicts)), lr_step=lrs[cross] / lrs[cross - 1],
             loss_rows=(rows_line(every_step), rows_line(loss_rows)),
             capture_ms=g[3], peak_capture=g[4], peak_eager_a=a[4], reserved=reserved,
-            times=times, peaks=peaks, digest=digest.hexdigest(),
+            times=times, peaks=peaks, digest=digest(g[1] + g[2]),
+            digest_g=None if held_to is None else digest(held_to[1] + held_to[2]),
+            took=choices.took,
             # the graph writes into its recorder's buffers: they live as long
             runners=(graph, eager, runs["graph"][0]))
         del kept, runs
@@ -3588,13 +3721,17 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
 
 def mesh_chunks_report(ranks, how, smi):
     """Each rank's ``train_chunks`` (run by ``mesh_equality``): checked that
-    every rank's graph run left bitwise the same parameters and BN
-    statistics; printed, in turns, for every rank and the slowest (the
-    largest time, the least busy share), gates off and on."""
+    every rank's graph run, and eager G where the ranks ran it, left bitwise
+    the same parameters and BN statistics; printed, in turns, for every rank
+    and the slowest (the largest time, the least busy share), gates off and
+    on, with the ranks whose own share took a choice no eager run took."""
     for gates in (False, True):
         rows = [r["chunks"][gates] for r in ranks]
-        check(len({r["digest"] for r in rows}) == 1, f"gates {gates}: the ranks' "
-              f"replicas differ after the replays: {[r['digest'][:12] for r in rows]}")
+        for key, run in (("digest", "the replays"), ("digest_g", "eager G")):
+            got = [r[key] for r in rows]
+            check(len(set(got)) == 1, f"gates {gates}: the ranks' replicas differ after "
+                  f"{run}: {[d and d[:12] for d in got]}")
+        took = rows[0]["took"]
         fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)
         # NCCL's kernels spin while they wait for a slower peer: the card's
         # own work is the busy share less NCCL's part of it
@@ -3623,7 +3760,10 @@ def mesh_chunks_report(ranks, how, smi):
         print(f"mesh: train chunks, {how}, gates {'on' if gates else 'off'}: on every rank "
               f"{CHUNK_STEPS} replays vs {CHUNK_STEPS} eager steps from one state at count "
               f"{CHUNK_START}, batches and rates equal, every tensor within phase 5's rule; "
-              f"the replicas bitwise equal after the replays; "
+              f"the replicas bitwise equal after the replays"
+              + ("" if rows[0]["digest_g"] is None else " and after eager G")
+              + f"; ranks whose own share took a choice no eager run took: {len(took)} of "
+              f"{len(rows)} {took}; "
               f"K1-fwd and K1-bwd {3 * TRACE_STEPS} each in {TRACE_STEPS} traced replays on "
               f"every rank; in turns (graph, eager, eager, graph; {CHUNK_STEPS} steps each): "
               + "; ".join(lines) + f" [{smi}]", flush=True)
