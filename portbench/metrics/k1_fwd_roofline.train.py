@@ -1,0 +1,10 @@
+"""k1_fwd_roofline.train: K1-fwd (``blurpool_down_kernel``) over the traced
+train steps, its bound over its measured time at the step's three blurpool
+shapes, in percent (``yardstick.rooflines.k1``). Moves
+``train_ms_per_iter``."""
+
+from yardstick import rooflines
+
+
+def read(record):
+    return rooflines.k1(record, "blurpool_down_kernel")
