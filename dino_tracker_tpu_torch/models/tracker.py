@@ -25,6 +25,7 @@ from .tracker_head import TrackerHead
 from ..config import TrackerConfig
 from ..parallel import mesh as mesh_lib
 from ..utils import coords as coord_utils
+from ..utils.profiling import step_span
 from ..utils.sampling import sample_feature_video_thwc
 
 EPS = 1e-8
@@ -45,9 +46,10 @@ class Tracker(nn.Module):
         self.tracker_head.reset_parameters(generator)
 
     def head(self, corr_maps_b1hw: torch.Tensor, cfg: TrackerConfig):
-        return self.tracker_head(corr_maps_b1hw, (cfg.video_h, cfg.video_w),
-                                 cfg.dino_patch_size, cfg.stride,
-                                 cfg.argmax_radius)
+        with step_span("train/step/head"):  # a part of the train step's terms
+            return self.tracker_head(corr_maps_b1hw, (cfg.video_h, cfg.video_w),
+                                     cfg.dino_patch_size, cfg.stride,
+                                     cfg.argmax_radius)
 
 
 def _gather_frames(x_tchw: torch.Tensor, frames_set_t: torch.Tensor):

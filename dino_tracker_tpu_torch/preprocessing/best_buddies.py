@@ -30,8 +30,7 @@ global one on every rank.
 from __future__ import annotations
 
 import logging
-import time
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,28 +40,17 @@ from ..ops.nms import nms_top2_peaks, topk_mask
 from ..parallel import mesh as mesh_lib
 from ..structures import BBData
 from ..utils.coords import bb_meshgrid
+from ..utils.profiling import stage_timer
 
 logger = logging.getLogger(__name__)
+
+# the stage's span (``utils/profiling.py``); each phase below is a span under
+# it that ends in a device sync
+SPAN = "preprocess/best_buddies"
 
 # pairs a sweep step, within a budget for their P×n×n f32 affinity
 _PAIR_BATCH = 8
 _AFFINITY_BUDGET_BYTES = 2 << 30
-
-
-class _Phases:
-    """Host seconds between marks, each mark after a device sync."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: Dict[str, float] = {}
-        self._tick = time.perf_counter()
-
-    def __call__(self, name: str):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[name] = now - self._tick
-        self._tick = now
 
 
 def _grid_hw(h: int, w: int, stride: int, patch_size: int):
@@ -149,81 +137,84 @@ def extract_best_buddies(features_tchw: torch.Tensor, h: int, w: int,
     _check_grid(features_tchw, h, w, stride, patch_size)
     t = features_tchw.shape[0]
     dev = features_tchw.device
-    phases = _Phases(dev)
-    grid = bb_meshgrid(h, w, stride, patch_size, device=dev)
-    fn = _normalized_tokens(features_tchw)
-    n = fn.shape[1]
-    adaptive = cap is None
-    raw = adaptive or cap >= n
-    core_cap = n if raw else cap
+    phases = {}
+    with stage_timer(f"{SPAN}/closest_grids", fence=dev) as span:
+        grid = bb_meshgrid(h, w, stride, patch_size, device=dev)
+        fn = _normalized_tokens(features_tchw)
+        n = fn.shape[1]
+        adaptive = cap is None
+        raw = adaptive or cap >= n
+        core_cap = n if raw else cap
 
-    keep_fn = None
-    if unfiltered_trajectories is not None:
-        trajs = torch.as_tensor(unfiltered_trajectories, device=dev)
-        closest = closest_trajectory_grids(trajs, grid, mesh=mesh)  # T×n
-        invalid = trajs.isnan().any(-1)  # N×T
-    phases("closest_grids_s")
-
-    pairs = torch.triu_indices(t, t, 1, device=dev)  # (s, u), s < u, row-major
-    bsz = min(_PAIR_BATCH, max(1, _AFFINITY_BUDGET_BYTES // (n * n * 4)))
-    starts = range(0, pairs.shape[1], bsz)
-    mine, rows = mesh_lib.split_batches([min(bsz, pairs.shape[1] - b0) for b0 in starts],
-                                        mesh)
-    logger.info("best-buddy sweep: %d frame pairs, %d a batch, n=%d tokens; %d of %d "
-                "batches here", pairs.shape[1], bsz, n, len(mine), len(starts))
-    outs = []
-    for b0 in (starts[i] for i in mine):
-        s_idx, u_idx = pairs[:, b0:b0 + bsz]
+        keep_fn = None
         if unfiltered_trajectories is not None:
-            def keep_fn(src_max, s_idx=s_idx, u_idx=u_idx):
-                # the source token's nearest trajectory must be invalid at
-                # frame u, and its buddy's at frame s (token = grid index)
-                src_traj = closest[s_idx]
-                tgt_traj = closest[u_idx].gather(1, src_max)
-                return invalid[src_traj, u_idx[:, None]] & invalid[tgt_traj, s_idx[:, None]]
-        outs.append(_mutual_nn_core(fn[s_idx], fn[u_idx], core_cap, keep_fn))
-    if pairs.shape[1]:
-        outs = mesh_lib.gather_batches(outs, rows, mesh, "bb_sweep", 3 if raw else 5)
-    else:  # one frame has no pair: an empty BBData, as the JAX stage returns
-        empty = lambda width, dtype=torch.int64: torch.zeros((0, width), dtype=dtype,
-                                                             device=dev)
-        outs = ((empty(n), empty(n, torch.float32), empty(n, torch.bool)) if raw else
-                (empty(cap), empty(cap), empty(cap, torch.float32), empty(cap, torch.bool),
-                 torch.zeros(0, dtype=torch.int64, device=dev)))
-    phases("sweep_s")
+            trajs = torch.as_tensor(unfiltered_trajectories, device=dev)
+            closest = closest_trajectory_grids(trajs, grid, mesh=mesh)  # T×n
+            invalid = trajs.isnan().any(-1)  # N×T
+    phases["closest_grids_s"] = span.seconds
 
-    if raw:
-        src_max, cos_pt, is_bb = outs
-        counts = is_bb.sum(1)
-        maxc = int(counts.max()) if counts.numel() else 0
-        cap = min(n, max(128, -(-maxc // 128) * 128)) if adaptive else cap
-        k = min(cap, n)
-        order = torch.argsort((~is_bb).to(torch.int8), dim=1, stable=True)[:, :k]
-        valid_p = torch.arange(k, device=dev) < counts[:, None]
-        src_xy = torch.where(valid_p[..., None], grid[order], 0.0)
-        tgt_xy = torch.where(valid_p[..., None], grid[src_max.gather(1, order)], 0.0)
-        cos_p = torch.where(valid_p, cos_pt.gather(1, order), 0.0)
-    else:
-        src_tok, tgt_tok, cos_p, valid_p, counts = outs
-        src_xy, tgt_xy = grid[src_tok], grid[tgt_tok]
-    k = valid_p.shape[1]
-    s_idx, u_idx = pairs
-    src_c = torch.zeros((t, t, cap, 2), device=dev)
-    tgt_c = torch.zeros((t, t, cap, 2), device=dev)
-    cos = torch.zeros((t, t, cap), device=dev)
-    valid = torch.zeros((t, t, cap), dtype=torch.bool, device=dev)
-    # the reverse direction is the forward list mirrored (mutual pairs are
-    # symmetric); diagonal pairs stay empty
-    for a, b, sc, tc in ((s_idx, u_idx, src_xy, tgt_xy), (u_idx, s_idx, tgt_xy, src_xy)):
-        src_c[a, b, :k] = sc
-        tgt_c[a, b, :k] = tc
-        cos[a, b, :k] = cos_p
-        valid[a, b, :k] = valid_p
-    counts = counts.cpu().numpy()
-    phases("compaction_s")
+    with stage_timer(f"{SPAN}/sweep", fence=dev) as span:
+        pairs = torch.triu_indices(t, t, 1, device=dev)  # (s, u), s < u, row-major
+        bsz = min(_PAIR_BATCH, max(1, _AFFINITY_BUDGET_BYTES // (n * n * 4)))
+        starts = range(0, pairs.shape[1], bsz)
+        mine, rows = mesh_lib.split_batches([min(bsz, pairs.shape[1] - b0) for b0 in starts],
+                                            mesh)
+        logger.info("best-buddy sweep: %d frame pairs, %d a batch, n=%d tokens; %d of %d "
+                    "batches here", pairs.shape[1], bsz, n, len(mine), len(starts))
+        outs = []
+        for b0 in (starts[i] for i in mine):
+            s_idx, u_idx = pairs[:, b0:b0 + bsz]
+            if unfiltered_trajectories is not None:
+                def keep_fn(src_max, s_idx=s_idx, u_idx=u_idx):
+                    # the source token's nearest trajectory must be invalid at
+                    # frame u, and its buddy's at frame s (token = grid index)
+                    src_traj = closest[s_idx]
+                    tgt_traj = closest[u_idx].gather(1, src_max)
+                    return invalid[src_traj, u_idx[:, None]] & invalid[tgt_traj, s_idx[:, None]]
+            outs.append(_mutual_nn_core(fn[s_idx], fn[u_idx], core_cap, keep_fn))
+        if pairs.shape[1]:
+            outs = mesh_lib.gather_batches(outs, rows, mesh, "bb_sweep", 3 if raw else 5)
+        else:  # one frame has no pair: an empty BBData, as the JAX stage returns
+            empty = lambda width, dtype=torch.int64: torch.zeros((0, width), dtype=dtype,
+                                                                 device=dev)
+            outs = ((empty(n), empty(n, torch.float32), empty(n, torch.bool)) if raw else
+                    (empty(cap), empty(cap), empty(cap, torch.float32), empty(cap, torch.bool),
+                     torch.zeros(0, dtype=torch.int64, device=dev)))
+    phases["sweep_s"] = span.seconds
+
+    with stage_timer(f"{SPAN}/compaction", fence=dev) as span:
+        if raw:
+            src_max, cos_pt, is_bb = outs
+            counts = is_bb.sum(1)
+            maxc = int(counts.max()) if counts.numel() else 0
+            cap = min(n, max(128, -(-maxc // 128) * 128)) if adaptive else cap
+            k = min(cap, n)
+            order = torch.argsort((~is_bb).to(torch.int8), dim=1, stable=True)[:, :k]
+            valid_p = torch.arange(k, device=dev) < counts[:, None]
+            src_xy = torch.where(valid_p[..., None], grid[order], 0.0)
+            tgt_xy = torch.where(valid_p[..., None], grid[src_max.gather(1, order)], 0.0)
+            cos_p = torch.where(valid_p, cos_pt.gather(1, order), 0.0)
+        else:
+            src_tok, tgt_tok, cos_p, valid_p, counts = outs
+            src_xy, tgt_xy = grid[src_tok], grid[tgt_tok]
+        k = valid_p.shape[1]
+        s_idx, u_idx = pairs
+        src_c = torch.zeros((t, t, cap, 2), device=dev)
+        tgt_c = torch.zeros((t, t, cap, 2), device=dev)
+        cos = torch.zeros((t, t, cap), device=dev)
+        valid = torch.zeros((t, t, cap), dtype=torch.bool, device=dev)
+        # the reverse direction is the forward list mirrored (mutual pairs are
+        # symmetric); diagonal pairs stay empty
+        for a, b, sc, tc in ((s_idx, u_idx, src_xy, tgt_xy), (u_idx, s_idx, tgt_xy, src_xy)):
+            src_c[a, b, :k] = sc
+            tgt_c[a, b, :k] = tc
+            cos[a, b, :k] = cos_p
+            valid[a, b, :k] = valid_p
+        counts = counts.cpu().numpy()
+    phases["compaction_s"] = span.seconds
 
     stats = {
-        "phases": phases.seconds,
+        "phases": phases,
         "cap": int(cap),
         "adaptive": bool(adaptive),
         "total_pairs": int(counts.size),
@@ -342,46 +333,50 @@ def compute_bb_ambiguity(bb: BBData, features_tchw: torch.Tensor, h: int, w: int
     _check_grid(features_tchw, h, w, stride, patch_size)
     t = features_tchw.shape[0]
     dev = features_tchw.device
-    phases = _Phases(dev)
-    half = patch_size // 2
-    gw = 1 + (w - patch_size) // stride
-    grid = bb_meshgrid(h, w, stride, patch_size, device=dev)
-    fn = _normalized_tokens(features_tchw)
-    n = fn.shape[1]
-    src = torch.as_tensor(bb.source_coords, device=dev)
-    valid = torch.as_tensor(bb.valid, device=dev)
-    cap = valid.shape[2]
-    cell = torch.div(src - half, stride, rounding_mode="floor").long()
-    tok = (cell[..., 1] * gw + cell[..., 0]).clamp(0, n - 1)  # T×T×cap
+    phases = {}
+    with stage_timer(f"{SPAN}/ambiguity/group_rows", fence=dev) as span:
+        half = patch_size // 2
+        gw = 1 + (w - patch_size) // stride
+        grid = bb_meshgrid(h, w, stride, patch_size, device=dev)
+        fn = _normalized_tokens(features_tchw)
+        n = fn.shape[1]
+        src = torch.as_tensor(bb.source_coords, device=dev)
+        valid = torch.as_tensor(bb.valid, device=dev)
+        cap = valid.shape[2]
+        cell = torch.div(src - half, stride, rounding_mode="floor").long()
+        tok = (cell[..., 1] * gw + cell[..., 0]).clamp(0, n - 1)  # T×T×cap
 
-    off_diag = ~torch.eye(t, dtype=torch.bool, device=dev)[..., None]
-    rows = torch.nonzero(valid & off_diag)  # R×3 (s, u, slot), s-major
-    rows = rows[torch.argsort(rows[:, 1], stable=True)]  # grouped by target u
-    per_frame = torch.bincount(rows[:, 1], minlength=t).cpu().numpy()
-    r_out = torch.ones((t, t, cap), device=dev)
-    phases("group_rows_s")
-    ends = np.cumsum(per_frame)
-    slabs = [(u, a, min(a + rows_per_slab, ends[u])) for u in np.nonzero(per_frame)[0].tolist()
-             for a in range(ends[u] - per_frame[u], ends[u], rows_per_slab)]
-    mine, counts = mesh_lib.split_batches([b - a for _, a, b in slabs], mesh)
-    r_slabs = []
-    for u, a, b in (slabs[i] for i in mine):
-        s, _, slot = rows[a:b].unbind(1)
-        sfeat = fn[s, tok[s, u, slot]]  # slab×C
-        with exact_f32_matmuls(sfeat):
-            sim = sfeat @ fn[u].T
-        r_slabs.append((nms_top2_peaks(sim, grid, topk=topk, box_size=box_size,
-                                       iou_thresh=iou_thresh)[1],))
-    phases("slabs_s")
-    if slabs:
-        r_out[tuple(rows.unbind(1))] = mesh_lib.gather_batches(
-            r_slabs, counts, mesh, "bb_ambiguity")[0]
-    # the reverse list mirrors the forward one: slot k of (s, u) pairs with
-    # slot k of (u, s)
-    r_sym = torch.maximum(r_out, r_out.transpose(0, 1))
-    phases("scatter_s")
+        off_diag = ~torch.eye(t, dtype=torch.bool, device=dev)[..., None]
+        rows = torch.nonzero(valid & off_diag)  # R×3 (s, u, slot), s-major
+        rows = rows[torch.argsort(rows[:, 1], stable=True)]  # grouped by target u
+        per_frame = torch.bincount(rows[:, 1], minlength=t).cpu().numpy()
+        r_out = torch.ones((t, t, cap), device=dev)
+    phases["group_rows_s"] = span.seconds
+    with stage_timer(f"{SPAN}/ambiguity/slabs", fence=dev) as span:
+        ends = np.cumsum(per_frame)
+        slabs = [(u, a, min(a + rows_per_slab, ends[u]))
+                 for u in np.nonzero(per_frame)[0].tolist()
+                 for a in range(ends[u] - per_frame[u], ends[u], rows_per_slab)]
+        mine, counts = mesh_lib.split_batches([b - a for _, a, b in slabs], mesh)
+        r_slabs = []
+        for u, a, b in (slabs[i] for i in mine):
+            s, _, slot = rows[a:b].unbind(1)
+            sfeat = fn[s, tok[s, u, slot]]  # slab×C
+            with exact_f32_matmuls(sfeat):
+                sim = sfeat @ fn[u].T
+            r_slabs.append((nms_top2_peaks(sim, grid, topk=topk, box_size=box_size,
+                                           iou_thresh=iou_thresh)[1],))
+    phases["slabs_s"] = span.seconds
+    with stage_timer(f"{SPAN}/ambiguity/scatter", fence=dev) as span:
+        if slabs:
+            r_out[tuple(rows.unbind(1))] = mesh_lib.gather_batches(
+                r_slabs, counts, mesh, "bb_ambiguity")[0]
+        # the reverse list mirrors the forward one: slot k of (s, u) pairs with
+        # slot k of (u, s)
+        r_sym = torch.maximum(r_out, r_out.transpose(0, 1))
+    phases["scatter_s"] = span.seconds
     if telemetry is not None:
-        telemetry.update({"phases": phases.seconds,
+        telemetry.update({"phases": phases,
                           "m_max": int(per_frame.max()) if t else 0,
                           "rows_total": int(rows.shape[0])})
     return bb._replace(r=r_sym)

@@ -19,10 +19,24 @@ of ``dino_tracker_tpu/preprocessing/pipeline.py``).
 Artifacts land in the JAX package's layout (``config.add_config_paths``), so
 the two packages read each other's files. Feature videos are cast to the
 store dtype (f16) on the device and written from a background thread; a
-writer failure is re-raised by ``join_saves``. ``timings`` holds the host
-seconds of each stage (under the JAX package's stage names) and phase, each
-ending in a device sync; ``run()`` also records its stages in the process-wide
-stage timers of ``utils/profiling.py`` and logs their report.
+writer failure is re-raised by ``join_saves``.
+
+Every stage and its parts are spans of ``utils/profiling.py``
+(``stage_timer``), named ``preprocess/<stage>`` and
+``preprocess/<stage>/<part>``: stage 1's ``encode``, ``adjacent_flows``,
+``direct_flows`` (every RAFT decode of a start frame), ``chaining`` (the
+device chaining and the keep-mask fetch), ``harvest`` and ``save``; stage
+2's ``sweep`` and ``save`` (an asynchronous save's span is its writer
+thread's: it reaches the registry, but the profiler records no annotation
+of that thread); stage 3's ``compute`` and ``save``; stage 4's
+``load_masks``, ``split`` and ``save``; the unfiltered trajectories'
+``save``; stage 5's ``closest_grids``, ``sweep``, ``compaction``,
+``ambiguity`` and ``save``. A span ends in a device sync only where the
+work syncs anyway; while a profiler records, the spans lie on the trace's
+clock and their device work is found there. ``timings`` is one run's view
+of them: the seconds of each stage (under the JAX package's stage names) and
+of stage 1's and stage 5's phases, under the keys the run has always
+reported; ``run()`` logs the registry's report.
 
 With ``mesh`` (JAX ``pipeline.py:53``) every rank runs ``run()``: the ViT
 frames, RAFT's encoder frames and decode pairs, the closest grids, the
@@ -41,7 +55,6 @@ import json
 import logging
 import os
 import threading
-import time
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -54,7 +67,7 @@ from ..models.vit import VisionTransformer, extract_feature_video
 from ..parallel import mesh as mesh_lib
 from ..structures import save_bb_data
 from ..utils import video_io
-from ..utils.profiling import dump_stage_report, stage_timer
+from ..utils.profiling import dump_stage_report, stage_seconds, stage_timer
 from . import best_buddies as bb_lib
 from . import fg_mask as fg_lib
 from . import split_fg_bg as split_lib
@@ -133,20 +146,24 @@ class PreprocessingPipeline:
                 mesh=self.mesh)
         return self._engine
 
-    def _timed(self, name: str, fn):
-        """``fn()``, its host seconds up to a device sync kept under ``name``."""
-        t0 = time.perf_counter()
-        out = fn()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[name] = time.perf_counter() - t0
+    def _timed(self, key: str, name: str, fn):
+        """``fn()`` in the span ``name``, which ends in a device sync; its
+        seconds kept in ``timings`` under ``key``."""
+        with stage_timer(name, fence=self.device) as span:
+            out = fn()
+        self.timings[key] = span.seconds
         return out
 
     def _adjacent_flows(self):
         eng = self.flow_engine
-        self._timed("encode", eng.encodings)
+        self._timed("encode", f"{traj_lib.SPAN}/encode", eng.encodings)
         logger.info("adjacent RAFT flows (%d pairs)", eng.t - 1)
-        return self._timed("adjacent_flows", eng.adjacent_flows)
+        return self._timed("adjacent_flows", f"{traj_lib.SPAN}/adjacent_flows", eng.adjacent_flows)
+
+    def _save_trajectories(self, path: str, trajs: np.ndarray):
+        with stage_timer(f"{traj_lib.SPAN}/save"):
+            video_io.save_npz(path, trajectories=trajs)
+        logger.info("saved %s: %s", path, trajs.shape)
 
     def extract_trajectories(self, use_direct_filter: bool, out_path: str) -> np.ndarray:
         """One chaining pass, with or without the direct-flow filter; writes
@@ -155,14 +172,13 @@ class PreprocessingPipeline:
         direct_fn = None
         if use_direct_filter:
             direct_fn = lambda s: self.flow_engine.direct_flows(s, self.cfg.threshold)
-        trajs = self._timed("chaining", lambda: traj_lib.extract_trajectories(
+        trajs = self._timed("chaining", traj_lib.CHAINING, lambda: traj_lib.extract_trajectories(
             fwd, bwd, threshold=self.cfg.threshold,
             min_trajectory_length=self.cfg.min_trajectory_length,
             direct_flow_fn=direct_fn,
             direct_flow_threshold=self.cfg.direct_flow_threshold))
         if self.main:
-            video_io.save_npz(out_path, trajectories=trajs)
-            logger.info("saved %s: %s", out_path, trajs.shape)
+            self._save_trajectories(out_path, trajs)
         return trajs
 
     def extract_trajectories_both(self):
@@ -172,15 +188,17 @@ class PreprocessingPipeline:
         and returns (filtered, unfiltered)."""
         fwd, bwd = self._adjacent_flows()
         eng = self.flow_engine
+        sweep = (traj_lib.DIRECT_FLOWS, traj_lib.CHAINING)
+        before = stage_seconds(*sweep), stage_seconds(traj_lib.HARVEST)
         trajs, unfiltered = traj_lib.extract_trajectories_dual(
             fwd, bwd, direct_flow_fn=lambda s: eng.direct_flows(s, self.cfg.threshold),
             threshold=self.cfg.threshold,
             min_trajectory_length=self.cfg.min_trajectory_length,
-            direct_flow_threshold=self.cfg.direct_flow_threshold,
-            timings=self.timings)
+            direct_flow_threshold=self.cfg.direct_flow_threshold)
+        self.timings["direct_sweep_and_chaining"] = stage_seconds(*sweep) - before[0]
+        self.timings["harvest"] = stage_seconds(traj_lib.HARVEST) - before[1]
         if self.main:
-            video_io.save_npz(self.paths["trajectories_file"], trajectories=trajs)
-            logger.info("saved %s: %s", self.paths["trajectories_file"], trajs.shape)
+            self._save_trajectories(self.paths["trajectories_file"], trajs)
         return trajs, unfiltered
 
     def extract_dino_features(self, layer: Union[int, Sequence[int]],
@@ -197,12 +215,13 @@ class PreprocessingPipeline:
         single = isinstance(layer, int)
         layers = [layer] if single else list(layer)
         out_paths = [out_path] if single else list(out_path)
-        feats = extract_feature_video(
-            self.vit, self.video,
-            stride=self.cfg.dino_stride if stride is None else stride,
-            layer=layers, facet=self.cfg.dino_facet if facet is None else facet,
-            frames_per_batch=self.cfg.extract_frames_per_batch,
-            compute_dtype=_DTYPES[self.cfg.compute_dtype], mesh=self.mesh)
+        with stage_timer("preprocess/dino_features/sweep"):
+            feats = extract_feature_video(
+                self.vit, self.video,
+                stride=self.cfg.dino_stride if stride is None else stride,
+                layer=layers, facet=self.cfg.dino_facet if facet is None else facet,
+                frames_per_batch=self.cfg.extract_frames_per_batch,
+                compute_dtype=_DTYPES[self.cfg.compute_dtype], mesh=self.mesh)
         store = _DTYPES[self.cfg.feature_store_dtype]
         for f, path in zip(feats if self.main else (), out_paths):
             stored = f.to(store)  # on the device: halves the fetch, not only the file
@@ -213,7 +232,9 @@ class PreprocessingPipeline:
         return feats[0] if single else feats
 
     def _save(self, features: torch.Tensor, path: str):
-        video_io.save_npz(path, features=features.cpu().numpy())
+        """On this thread or a writer's: the span is the thread's own."""
+        with stage_timer("preprocess/dino_features/save"):
+            video_io.save_npz(path, features=features.cpu().numpy())
         logger.info("saved %s: %s (%s)", path, tuple(features.shape),
                     features.dtype)
 
@@ -235,11 +256,13 @@ class PreprocessingPipeline:
         frames to the masks folder (0/255); rank 0's work (others: None)."""
         if not self.main:
             return None
-        masks = fg_lib.compute_fg_masks(
-            mask_features, (self.cfg.video_resh, self.cfg.video_resw),
-            fg_mask_threshold=self.cfg.fg_mask_threshold).cpu().numpy()
-        video_io.save_video_frames((masks * 255).astype(np.uint8),
-                                   self.paths["masks_path"])
+        with stage_timer("preprocess/fg_masks/compute"):
+            masks = fg_lib.compute_fg_masks(
+                mask_features, (self.cfg.video_resh, self.cfg.video_resw),
+                fg_mask_threshold=self.cfg.fg_mask_threshold).cpu().numpy()
+        with stage_timer("preprocess/fg_masks/save"):
+            video_io.save_video_frames((masks * 255).astype(np.uint8),
+                                       self.paths["masks_path"])
         return masks
 
     def split_trajectories(self, trajs: np.ndarray):
@@ -247,12 +270,15 @@ class PreprocessingPipeline:
         Rank 0's work (others: None)."""
         if not self.main:
             return None
-        masks = video_io.load_masks(self.paths["masks_path"],
-                                    h_resize=self.cfg.video_resh,
-                                    w_resize=self.cfg.video_resw)
-        fg, bg = split_lib.split_fg_bg(trajs, masks)
-        video_io.save_npz(self.paths["fg_trajectories_file"], trajectories=fg)
-        video_io.save_npz(self.paths["bg_trajectories_file"], trajectories=bg)
+        with stage_timer("preprocess/split_fg_bg/load_masks"):
+            masks = video_io.load_masks(self.paths["masks_path"],
+                                        h_resize=self.cfg.video_resh,
+                                        w_resize=self.cfg.video_resw)
+        with stage_timer("preprocess/split_fg_bg/split"):
+            fg, bg = split_lib.split_fg_bg(trajs, masks)
+        with stage_timer("preprocess/split_fg_bg/save"):
+            video_io.save_npz(self.paths["fg_trajectories_file"], trajectories=fg)
+            video_io.save_npz(self.paths["bg_trajectories_file"], trajectories=bg)
         logger.info("split: %d fg / %d bg trajectories", len(fg), len(bg))
         return fg, bg
 
@@ -268,7 +294,7 @@ class PreprocessingPipeline:
         bb = bb_lib.extract_best_buddies(
             features, h, w, stride, cap=self.cfg.bb_max_pairs_per_frame_pair,
             unfiltered_trajectories=unfiltered_trajs, telemetry=sweep, mesh=self.mesh)
-        phases = sweep["phases"]
+        phases = sweep["phases"]  # the spans' seconds
         self.timings["bb_closest_grids"] = phases["closest_grids_s"]
         self.timings["bb_sweep"] = phases["sweep_s"]
         self.timings["bb_compaction"] = phases["compaction_s"]
@@ -280,14 +306,15 @@ class PreprocessingPipeline:
                       "w") as f:
                 json.dump(sweep, f, indent=1)
         ambiguity: dict = {}
-        bb = self._timed("bb_ambiguity", lambda: bb_lib.compute_bb_ambiguity(
-            bb, features, h, w, stride, box_size=float(self.cfg.dino_bb_box_size),
-            iou_thresh=self.cfg.dino_bb_iou_threshold, topk=self.cfg.dino_bb_nms_topk,
-            telemetry=ambiguity, mesh=self.mesh))
+        bb = self._timed(
+            "bb_ambiguity", f"{bb_lib.SPAN}/ambiguity", lambda: bb_lib.compute_bb_ambiguity(
+                bb, features, h, w, stride, box_size=float(self.cfg.dino_bb_box_size),
+                iou_thresh=self.cfg.dino_bb_iou_threshold, topk=self.cfg.dino_bb_nms_topk,
+                telemetry=ambiguity, mesh=self.mesh))
         self.telemetry.update(best_buddies=sweep, bb_ambiguity=ambiguity)
         if self.main:
             out = os.path.join(self.paths["dino_bb_dir"], "dino_best_buddies_filtered.npz")
-            self._timed("bb_save", lambda: save_bb_data(out, bb))
+            self._timed("bb_save", f"{bb_lib.SPAN}/save", lambda: save_bb_data(out, bb))
             logger.info("saved %s", out)
         return bb
 
@@ -297,8 +324,7 @@ class PreprocessingPipeline:
         cfg, paths = self.cfg, self.paths
 
         def stage(name, fn):
-            with stage_timer(f"preprocess/{name}"):
-                return self._timed(f"preprocess/{name}", fn)
+            return self._timed(f"preprocess/{name}", f"preprocess/{name}", fn)
 
         # decided once, before anything is written: rank 0 writes the masks,
         # and a rank that looked after that would sweep other ViT layers
@@ -336,8 +362,11 @@ class PreprocessingPipeline:
         stage("split_fg_bg", lambda: (self.split_trajectories(trajs),
                                       mesh_lib.barrier(self.mesh)))
         if self.main:
-            stage("unfiltered_trajectories", lambda: video_io.save_npz(
-                paths["unfiltered_trajectories_file"], trajectories=unfiltered))
+            def save_unfiltered():
+                with stage_timer("preprocess/unfiltered_trajectories/save"):
+                    video_io.save_npz(paths["unfiltered_trajectories_file"],
+                                      trajectories=unfiltered)
+            stage("unfiltered_trajectories", save_unfiltered)
             logger.info("saved %s: %s", paths["unfiltered_trajectories_file"],
                         unfiltered.shape)
         stage("best_buddies", lambda: self.compute_best_buddies(feats, unfiltered))

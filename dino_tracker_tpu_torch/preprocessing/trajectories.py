@@ -30,16 +30,22 @@ dispatches or bound recompiles): ``_make_fused_start_program``,
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.native_traj import occupancy_update
+from ..utils.profiling import stage_timer
 from ..utils.sampling import bilinear_sampler_pixel
 
 DirectFlowFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
+
+# stage 1's span and the dual sweep's parts (``utils/profiling.py``)
+SPAN = "preprocess/trajectories"
+DIRECT_FLOWS = f"{SPAN}/direct_flows"
+CHAINING = f"{SPAN}/chaining"
+HARVEST = f"{SPAN}/harvest"
 
 
 def _grid(h: int, w: int, device) -> torch.Tensor:
@@ -210,8 +216,7 @@ def extract_trajectories(flows_fwd: torch.Tensor, flows_bwd: torch.Tensor,
 def extract_trajectories_dual(flows_fwd: torch.Tensor, flows_bwd: torch.Tensor, *,
                               direct_flow_fn: DirectFlowFn,
                               threshold: float = 1.5, min_trajectory_length: int = 2,
-                              direct_flow_threshold: float = 2.5,
-                              timings: Optional[Dict[str, float]] = None
+                              direct_flow_threshold: float = 2.5
                               ) -> Tuple[np.ndarray, np.ndarray]:
     """Both passes, with and without the direct-flow filter, in one sweep
     over the start frames -> (filtered N×t×2, unfiltered M×t×2). The
@@ -221,42 +226,41 @@ def extract_trajectories_dual(flows_fwd: torch.Tensor, flows_bwd: torch.Tensor, 
     reference's two runs do; eligibility and occupancy apply when the kept
     columns are chosen.
 
-    ``timings``, when given, gains the host seconds of the two phases of the
-    sweep: "direct_sweep_and_chaining" (up to the fetch of the keep masks,
-    which waits for the device) and "harvest" (choosing, fetching and
-    recording the kept columns)."""
+    Each start frame is three spans (``utils/profiling.py``, with no sync
+    of their own): ``DIRECT_FLOWS``, the direct flows' decodes as the host
+    enqueues them; ``CHAINING``, both passes' chaining and the fetch of the
+    keep masks, which waits for the device (the flow masks first too); and
+    ``HARVEST``, choosing, fetching and recording the kept columns (the
+    assembly last too)."""
     flows_fwd, flows_bwd = torch.as_tensor(flows_fwd), torch.as_tensor(flows_bwd)
     tm1, _, h, w = flows_fwd.shape
     t, dev = tm1 + 1, flows_fwd.device
     min_len = min_trajectory_length
-    masks = compute_flow_masks(flows_fwd, flows_bwd, threshold).cpu().numpy()
+    with stage_timer(CHAINING, log=False):
+        masks = compute_flow_masks(flows_fwd, flows_bwd, threshold).cpu().numpy()
     occupied = {"f": np.zeros((t, h, w), bool), "u": np.zeros((t, h, w), bool)}
     collected = {"f": [], "u": []}
-    sweep_s = harvest_s = 0.0
     for start in range(t - (min_len - 1)):
-        t0 = time.perf_counter()
-        dflows, dmasks = _padded_direct(direct_flow_fn, start, tm1, h, w, dev)
-        tl = dict(zip("fu", _chain_dual(flows_fwd, flows_bwd, start, dflows, dmasks,
-                                         threshold, direct_flow_threshold)))
-        keep = {k: _keep_mask(v, min_len).cpu().numpy() for k, v in tl.items()}
-        t1 = time.perf_counter()
-        for key in "fu":
-            elig = ~masks[start] | ~occupied[key][start]
-            ki = np.flatnonzero(keep[key] & elig)
-            if not ki.size:
-                continue
-            trajs = _gather_columns(tl[key], ki)  # t×K×2
-            collected[key].append(np.transpose(trajs, (1, 0, 2)))
-            occupancy_update(trajs, occupied[key], start)
-        sweep_s += t1 - t0
-        harvest_s += time.perf_counter() - t1
-    if timings is not None:
-        timings["direct_sweep_and_chaining"] = sweep_s
-        timings["harvest"] = harvest_s
+        with stage_timer(DIRECT_FLOWS, log=False):
+            dflows, dmasks = _padded_direct(direct_flow_fn, start, tm1, h, w, dev)
+        with stage_timer(CHAINING, log=False):
+            tl = dict(zip("fu", _chain_dual(flows_fwd, flows_bwd, start, dflows, dmasks,
+                                             threshold, direct_flow_threshold)))
+            keep = {k: _keep_mask(v, min_len).cpu().numpy() for k, v in tl.items()}
+        with stage_timer(HARVEST, log=False):
+            for key in "fu":
+                elig = ~masks[start] | ~occupied[key][start]
+                ki = np.flatnonzero(keep[key] & elig)
+                if not ki.size:
+                    continue
+                trajs = _gather_columns(tl[key], ki)  # t×K×2
+                collected[key].append(np.transpose(trajs, (1, 0, 2)))
+                occupancy_update(trajs, occupied[key], start)
 
     def assemble(key):
         if not collected[key]:
             return np.full((0, t, 2), np.nan, np.float32)
         return np.concatenate(collected[key], axis=0)
 
-    return assemble("f"), assemble("u")
+    with stage_timer(HARVEST, log=False):
+        return assemble("f"), assemble("u")

@@ -54,7 +54,7 @@ from ..models import tracker
 from ..parallel import mesh as mesh_lib
 from ..structures import BBData
 from ..utils import profiling
-from ..utils.profiling import stage_timer
+from ..utils.profiling import stage_timer, step_span
 from . import checkpoint as ckpt_lib
 from . import contrastive, cycle, losses
 from .sampler import TrajectoryBank, TrainSample, resolve_fg_batch, sample_batch
@@ -176,30 +176,38 @@ def step_losses(model: tracker.Tracker, data: VideoData, sample: TrainSample,
     ``mesh`` both are this rank's share: summed over ranks
     (``reduce_metrics``) they are the single-device values."""
     frames_set_t = sample.frames_set_t
-    refined, raw = tracker.get_refined_embeddings(
-        model, data.video, data.dino_embed, frames_set_t, tcfg, mesh=mesh)
-    # one cast+norm pass of the refined stack, shared by every loss term
-    view = tracker.make_frame_view(refined, tcfg.torch_compute_dtype)
-    # the flow term: the mean over the batch of this rank's points' sum
-    rows = lambda x: mesh_lib.split_rows(x, mesh)
-    coords = tracker.get_point_predictions(
-        model, rows(sample.t1_points), rows(sample.source_frame_indices),
-        rows(sample.target_frame_indices), refined, tcfg, view=view)
-    labels = sample.t2_points_normalized[:, :2]
-    l_of = losses.huber(coords, rows(labels)).sum() / labels.numel()
+    with step_span("train/step/refiner"):
+        refined, raw = tracker.get_refined_embeddings(
+            model, data.video, data.dino_embed, frames_set_t, tcfg, mesh=mesh)
+    # the backward pass: the terms' part ends, the refiner's begins, once
+    # every term's gradient of the refined stack is summed
+    refined = profiling.step_boundary(refined, ends="train/step/backward_terms",
+                                      begins="train/step/refiner_bwd")
+    with step_span("train/step/view"):
+        # one cast+norm pass of the refined stack, shared by every loss term
+        view = tracker.make_frame_view(refined, tcfg.torch_compute_dtype)
+    with step_span("train/step/flow_term"):
+        # the flow term: the mean over the batch of this rank's points' sum
+        rows = lambda x: mesh_lib.split_rows(x, mesh)
+        coords = tracker.get_point_predictions(
+            model, rows(sample.t1_points), rows(sample.source_frame_indices),
+            rows(sample.target_frame_indices), refined, tcfg, view=view)
+        labels = sample.t2_points_normalized[:, :2]
+        l_of = losses.huber(coords, rows(labels)).sum() / labels.numel()
     total = l_of
     zero = torch.zeros((), device=refined.device)
 
     l_cyc = zero
     if use_cyc:
-        if cyc_data is None:
-            cyc_data = cycle.generate_cycle_data(
-                generator, model, refined, frames_set_t, data.fg_masks, tcfg,
-                cfg.cyc_n_frames, cfg.cyc_batch_size_per_frame,
-                cfg.cyc_fg_points_ratio, cfg.cyc_thresh, view=view, mesh=mesh)
-        l_cyc = cycle.cycle_consistency_loss(
-            model, refined, cyc_data, tcfg, cfg.cyc_gamma,
-            group_size=cfg.cyc_batch_size_per_frame, view=view, mesh=mesh)
+        with step_span("train/step/cycle"):
+            if cyc_data is None:
+                cyc_data = cycle.generate_cycle_data(
+                    generator, model, refined, frames_set_t, data.fg_masks, tcfg,
+                    cfg.cyc_n_frames, cfg.cyc_batch_size_per_frame,
+                    cfg.cyc_fg_points_ratio, cfg.cyc_thresh, view=view, mesh=mesh)
+            l_cyc = cycle.cycle_consistency_loss(
+                model, refined, cyc_data, tcfg, cfg.cyc_gamma,
+                group_size=cfg.cyc_batch_size_per_frame, view=view, mesh=mesh)
         total = total + cfg.lambda_cyc * l_cyc
 
     # the terms of the whole refined stack: every rank computes them whole
@@ -207,19 +215,22 @@ def step_losses(model: tracker.Tracker, data: VideoData, sample: TrainSample,
     share = lambda v: v / mesh.world_size if mesh_lib.is_parallel(mesh) else v
     l_cl_ref = zero
     if use_cl_ref:
-        l_cl_ref = share(contrastive.refined_bb_contrastive_loss(
-            generator, refined, frames_set_t, data.fg_masks, tcfg,
-            cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
-            cfg.cl_temp, cfg.cl_div_ref_bb, view=view, pair_sel=ref_pair_sel))
+        with step_span("train/step/contrastive_ref"):
+            l_cl_ref = share(contrastive.refined_bb_contrastive_loss(
+                generator, refined, frames_set_t, data.fg_masks, tcfg,
+                cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
+                cfg.cl_temp, cfg.cl_div_ref_bb, view=view, pair_sel=ref_pair_sel))
         total = total + cfg.lambda_cl_ref_bb * l_cl_ref
 
-    l_cl_dino = share(contrastive.dino_bb_contrastive_loss(
-        generator, refined, frames_set_t, data.bb, data.fg_masks, tcfg,
-        cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
-        cfg.cl_temp, cfg.cl_div_dino_bb, cfg.bb_amb_sig_a, cfg.bb_amb_sig_b,
-        view=view, pair_sel=dino_pair_sel))
-    l_norm = share(losses.emb_norm_regularization(refined, raw))
-    l_angle = share(losses.emb_angle_regularization(refined, raw))
+    with step_span("train/step/contrastive_dino"):
+        l_cl_dino = share(contrastive.dino_bb_contrastive_loss(
+            generator, refined, frames_set_t, data.bb, data.fg_masks, tcfg,
+            cfg.cl_n_frames, cfg.cl_points_per_pair, cfg.cl_fg_points_ratio,
+            cfg.cl_temp, cfg.cl_div_dino_bb, cfg.bb_amb_sig_a, cfg.bb_amb_sig_b,
+            view=view, pair_sel=dino_pair_sel))
+    with step_span("train/step/regularisers"):
+        l_norm = share(losses.emb_norm_regularization(refined, raw))
+        l_angle = share(losses.emb_angle_regularization(refined, raw))
     total = (total + cfg.lambda_cl_dino_bb * l_cl_dino
              + cfg.lambda_emb_norm * l_norm + cfg.lambda_angle * l_angle)
     values = (l_of, l_cyc, l_cl_ref, l_cl_dino, l_norm, l_angle, total)
@@ -244,19 +255,27 @@ def train_step(model: tracker.Tracker, opt, sched, data: VideoData,
     metrics as device scalars (reading them is the caller's sync); with a
     ``mesh``, this rank's shares of them (``reduce_metrics``), after the
     gradients were summed over the ranks."""
-    fg_batch = resolve_fg_batch(data.fg_bank, data.bg_bank,
-                                cfg.train_batch_size, cfg.fg_traj_ratio)
-    sample = sample_batch(generator, data.fg_bank, data.bg_bank,
-                          cfg.train_batch_size, cfg.batch_n_frames,
-                          cfg.fg_traj_ratio, data.video.shape[0],
-                          cfg.video_resw, cfg.video_resh, fg_batch=fg_batch)
-    total, metrics = step_losses(model, data, sample, generator, cfg, tcfg,
-                                 use_cyc, use_cl_ref, mesh=mesh)
-    opt.zero_grad(set_to_none=True)
-    total.backward()
-    mesh_lib.all_reduce_grads(model, mesh)
-    opt.step()
-    sched.step()
+    with step_span("train/step"):
+        with step_span("train/step/sampler"):
+            fg_batch = resolve_fg_batch(data.fg_bank, data.bg_bank,
+                                        cfg.train_batch_size, cfg.fg_traj_ratio)
+            sample = sample_batch(generator, data.fg_bank, data.bg_bank,
+                                  cfg.train_batch_size, cfg.batch_n_frames,
+                                  cfg.fg_traj_ratio, data.video.shape[0],
+                                  cfg.video_resw, cfg.video_resh, fg_batch=fg_batch)
+        total, metrics = step_losses(model, data, sample, generator, cfg, tcfg,
+                                     use_cyc, use_cl_ref, mesh=mesh)
+        opt.zero_grad(set_to_none=True)
+        # the backward pass from the loss down to the refined stack's
+        # gradient, then through DeltaDINO (``step_losses`` marks the turn)
+        profiling.step_boundary(total, begins="train/step/backward_terms").backward()
+        profiling.step_span_end("train/step/refiner_bwd")
+        with (step_span("train/step/all_reduce") if mesh_lib.is_parallel(mesh)
+              else contextlib.nullcontext()):  # a part only on a mesh
+            mesh_lib.all_reduce_grads(model, mesh)
+        with step_span("train/step/optimizer"):
+            opt.step()
+            sched.step()
     return metrics
 
 
@@ -320,7 +339,11 @@ class StepRunner:
     capture anew at the same step: it does by construction, since the
     variant and ``_same_data`` are decided from what every rank holds alike
     (the same gates, the same bank counts and data, rotated in place at the
-    same iteration)."""
+    same iteration).
+
+    ``spans`` times the step's parts (``train/step/<part>``,
+    ``profiling.StepSpans``): a captured step always holds their events, an
+    eager step records them while a profiler records."""
 
     def __init__(self, model, opt, sched, generator: torch.Generator, cfg,
                  tcfg: TrackerConfig, mesh=None):
@@ -330,14 +353,23 @@ class StepRunner:
         self.eager_because = eager_because(generator.device, mesh)
         self.graphed = self.eager_because is None
         self._graph = self._variant = self._data = None
+        self.spans = profiling.StepSpans(generator.device)
 
     def step(self, data: VideoData, use_cyc: bool, use_cl_ref: bool):
-        m = train_step(self.model, self.opt, self.sched, data, self.generator,
-                       use_cyc, use_cl_ref, self.cfg, self.tcfg, self.mesh)
+        capturing = self.spans.cuda and torch.cuda.is_current_stream_capturing()
+        with self.spans.taking(capturing):
+            m = train_step(self.model, self.opt, self.sched, data, self.generator,
+                           use_cyc, use_cl_ref, self.cfg, self.tcfg, self.mesh)
         self.metrics.add_(torch.stack([m[k] for k in METRICS]))
 
     def run(self, data: VideoData, use_cyc: bool, use_cl_ref: bool, n: int):
-        """Take ``n`` steps under these gates."""
+        """Take ``n`` steps under these gates. While a profiler records, the
+        newest step's parts are then read (``profiling.StepSpans``): whoever
+        traces waits for the card right after."""
+        self._run(data, use_cyc, use_cl_ref, n)
+        self.spans.read()
+
+    def _run(self, data: VideoData, use_cyc: bool, use_cl_ref: bool, n: int):
         if not self.graphed:
             for _ in range(n):
                 self.step(data, use_cyc, use_cl_ref)
@@ -354,7 +386,9 @@ class StepRunner:
                 self.generator, self.model, self.mesh)
             self._variant, self._data = variant, data
             n -= 1
-        self._graph.replay(n)
+        if n:
+            self._graph.replay(n)
+            self.spans.replayed()
 
     def take_metrics(self) -> dict:
         """The metrics' sums since the last call (device scalars); resets
@@ -388,7 +422,8 @@ class Trainer:
     (``train/init``), the steps under each set of gates (``steps_stage``),
     and apart from them the log's metric reads (``train/log``), the
     checkpoints' snapshots and the final save (``train/checkpoint``) and the
-    bank rotations (``train/bank_rotation``).
+    bank rotations (``train/bank_rotation``); while a profiler records, each
+    log also reads the newest step's parts into the registry.
 
     With a ``mesh`` (``parallel/mesh.py``) every rank runs this loop on its
     own device with the same seed: the metrics are summed over the ranks for
@@ -467,6 +502,7 @@ class Trainer:
                         if main:
                             logger.info("iter %d: %s", i, {
                                 k: float(v) / running_n for k, v in running.items()})
+                        runner.spans.read()  # while a profiler records
                     running_n = 0
                 if save and main:
                     with stage_timer("train/checkpoint", fence=self.device):

@@ -1,0 +1,14 @@
+"""step_regularisers_ms.train: device ms a traced train step spends in the
+two refined-embedding regularisers' forward (the program's
+``train/step/regularisers`` span), averaged over the traced stretches'
+steps. Moves ``train_ms_per_iter``."""
+
+from yardstick import spans
+
+
+def read(record):
+    try:
+        from dino_tracker_tpu_torch.utils.profiling import stage_report
+    except ImportError:  # no program to read
+        return None
+    return spans.step_ms(record, stage_report(), ["regularisers"])

@@ -239,3 +239,80 @@ def test_preprocess_cli_then_train_cli(tmp_path, weights):
     train_yaml = write_train_config(tmp_path / "train.yaml")
     train_cli.main(["--config", train_yaml, "--data-path", root, "--device", "cpu"])
     assert ckpt.checkpoint_steps(os.path.join(root, "models", "dino_tracker")) == [2]
+
+
+# every span of a run with the direct filter on and no masks on disk, each
+# under its stage (``pipeline.py``'s docstring)
+SPANS = {
+    "preprocess/trajectories": ("encode", "adjacent_flows", "direct_flows", "chaining",
+                                "harvest", "save"),
+    "preprocess/dino_features": ("sweep", "save"),
+    "preprocess/fg_masks": ("compute", "save"),
+    "preprocess/split_fg_bg": ("load_masks", "split", "save"),
+    "preprocess/unfiltered_trajectories": ("save",),
+    "preprocess/best_buddies": ("closest_grids", "sweep", "compaction", "ambiguity", "save"),
+}
+TIMINGS = {"encode", "adjacent_flows", "direct_sweep_and_chaining", "harvest",
+           "bb_closest_grids", "bb_sweep", "bb_compaction", "bb_ambiguity", "bb_save",
+           *STAGES}
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory, weights):
+    """One run under ``profiling.device_trace`` (the feature saves on this
+    thread, so each span closes before the run returns) -> (pipeline, the
+    trace's annotations, the registry's seconds added by the run)."""
+    from dino_tracker_tpu_torch.utils import profiling
+    tmp = tmp_path_factory.mktemp("traced")
+    _, raft, _, vit = weights
+    cfg = PreprocessConfig(async_artifact_save=False, **SETTINGS)
+    pipe = PreprocessingPipeline(video_dir(tmp), cfg, vit=vit, device=CPU, raft=raft)
+    names = [f"{stage}/{part}" for stage, parts in SPANS.items() for part in parts]
+    names += list(SPANS)
+    before = {n: profiling.stage_seconds(n) for n in names}
+    with profiling.device_trace(str(tmp / "trace")):
+        pipe.run()
+    with open(tmp / "trace" / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation" and "dur" in e]
+    return pipe, events, {n: profiling.stage_seconds(n) - before[n] for n in names}
+
+
+def test_a_traced_run_holds_each_stage_and_its_parts(traced_run):
+    """Each stage's span and each of its parts is a ``user_annotation``
+    event of the run's Chrome trace, every part inside its stage's
+    interval."""
+    _, events, _ = traced_run
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e["name"], []).append(e)
+    for stage, parts in SPANS.items():
+        (outer,) = by_name[stage]
+        for part in parts:
+            inner = by_name.get(f"{stage}/{part}")
+            assert inner, f"{stage}/{part}"
+            assert all(outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+                       for e in inner), f"{stage}/{part}"
+    per_start = T - 1  # min_trajectory_length 2
+    assert len(by_name["preprocess/trajectories/direct_flows"]) == per_start
+    assert len(by_name["preprocess/trajectories/harvest"]) == per_start + 1
+
+
+def test_timings_keep_their_keys_and_read_the_spans(traced_run):
+    """``pipe.timings`` holds the keys a run has always reported, each the
+    seconds of its span (stage 1's sweep: the direct flows' and the
+    chaining's spans together)."""
+    pipe, _, added = traced_run
+    assert set(pipe.timings) == TIMINGS
+    assert [k for k in pipe.timings if k.startswith("preprocess/")] == STAGES
+    s1, bb = "preprocess/trajectories", "preprocess/best_buddies"
+    want = {s: added[s] for s in STAGES}
+    want.update(encode=added[f"{s1}/encode"], adjacent_flows=added[f"{s1}/adjacent_flows"],
+                direct_sweep_and_chaining=added[f"{s1}/direct_flows"] + added[f"{s1}/chaining"],
+                harvest=added[f"{s1}/harvest"], bb_closest_grids=added[f"{bb}/closest_grids"],
+                bb_sweep=added[f"{bb}/sweep"], bb_compaction=added[f"{bb}/compaction"],
+                bb_ambiguity=added[f"{bb}/ambiguity"], bb_save=added[f"{bb}/save"])
+    assert pipe.timings == pytest.approx(want, rel=1e-9, abs=1e-12)
+    assert pipe.telemetry["best_buddies"]["phases"] == {
+        "closest_grids_s": pipe.timings["bb_closest_grids"],
+        "sweep_s": pipe.timings["bb_sweep"], "compaction_s": pipe.timings["bb_compaction"]}

@@ -39,7 +39,7 @@ from dino_tracker_tpu_torch.models import raft as praft
 from dino_tracker_tpu_torch.preprocessing import flow as pflow
 from dino_tracker_tpu_torch.preprocessing import trajectories as ptraj
 from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
-from dino_tracker_tpu_torch.utils import native_traj, video_io
+from dino_tracker_tpu_torch.utils import native_traj, profiling, video_io
 from test_torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -114,14 +114,18 @@ def test_extract_trajectories_dual_match_jax(kind, min_len):
     t, _, h, w = (fwd.shape[0] + 1,) + fwd.shape[1:]
     kw = dict(threshold=1.0, min_trajectory_length=min_len, direct_flow_threshold=2.5,
               direct_flow_fn=disagreeing_direct_fn(t, h, w))
-    timings = {}
+    spans = (ptraj.DIRECT_FLOWS, ptraj.CHAINING, ptraj.HARVEST)
+    before = [profiling.stage_report().get(n, {}).get("calls", 0) for n in spans]
     got_f, got_u = ptraj.extract_trajectories_dual(torch.from_numpy(fwd),
-                                                   torch.from_numpy(bwd), timings=timings, **kw)
+                                                   torch.from_numpy(bwd), **kw)
     want_f, want_u = jtraj.extract_trajectories_dual(fwd, bwd, **kw)
     np.testing.assert_array_equal(got_f, want_f)
     np.testing.assert_array_equal(got_u, want_u)
     assert len(want_f) != len(want_u)
-    assert set(timings) == {"direct_sweep_and_chaining", "harvest"}
+    # each start frame's three spans, the flow masks' chaining and the assembly's harvest
+    starts = t - (min_len - 1)
+    after = [profiling.stage_report()[n]["calls"] for n in spans]
+    assert [a - b for a, b in zip(after, before)] == [starts, starts + 1, starts + 1]
 
 
 def test_min_trajectory_length_drops_short_tracks():
