@@ -5,7 +5,8 @@
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
-    python3 chip_smoke.py --train-only [--resume-faults]   # phases 1, 2 (K1) and 5 only
+    python3 chip_smoke.py --train-only [--resume-faults]   # phases 1, 2 (K1, K4), 3's K4
+                                             # check, 4 and 5 only
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -15,8 +16,9 @@
 Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
   2. build: compiles kernels K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
-     and K1-bwd blurpool_up_nhwc), K2 (csrc/flash_attention.cu) and K3
-     (csrc/corr_lookup.cu) with nvcc into build/kernels/, one nvcc per
+     and K1-bwd blurpool_up_nhwc), K2 (csrc/flash_attention.cu), K3
+     (csrc/corr_lookup.cu) and K4 (csrc/tracker_head.cu: K4-fwd head_conv_fwd
+     and K4-bwd head_conv_bwd) with nvcc into build/kernels/, one nvcc per
      source, all started together; prints each kernel's registers, shared
      memory and spills as ptxas reports them.
   3. kernel check: K1-fwd against its plain PyTorch version at the three
@@ -34,13 +36,19 @@ Phases, one line or more each (any failure raises and exits non-zero):
      put under it; with the error bounds and kernel vs plain (and, for K2,
      F.scaled_dot_product_attention, for K3 four F.grid_sample calls) times
      from CUDA events, and the share of the bound each kernel reaches; K1-fwd
-     also alone at the three bf16 shapes of an 8-frame training step.
+     also alone at the three bf16 shapes of an 8-frame training step; K4-fwd
+     and K4-bwd against the plain f32 chain (TF32 off) at the train step's
+     head shapes (512, 1024 and 2048 maps of 67×121), each error within 1e-5
+     of its terms' summed magnitudes, timed beside its bound, the plain
+     version and the head's cuDNN chain (library_ms), and summed over one
+     gates-on step's head calls.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
      by convert.state_from_jax. runtime.make_model_inference refines every
      frame (DeltaDINO through K1-fwd), then ModelInference.infer serves three
-     requests of 256 query points on frames 0, 24 and 49.
+     requests of 256 query points on frames 0, 24 and 49 (every head through
+     K4-fwd).
   5. the training slice at full width: the same video and feature stack,
      synthetic fg masks, 100k fg + 100k bg trajectories and padded best
      buddies, all made on the card from a seed; TrainConfig's defaults
@@ -56,7 +64,8 @@ Phases, one line or more each (any failure raises and exits non-zero):
      K1-fwd and K1-bwd: the wrappers count 3 launches an eager step
      (a capture's warm-up step included), and torch.profiler traces every
      replay, 5 a trace, and counts the kernels the card ran, 3 each a
-     replay.
+     replay; K4-fwd and K4-bwd likewise, 1 and 1 a step with the gates off,
+     4 and 2 with them on (HEAD_LAUNCHES).
      Then, for each set of gates, from one state (30 eager steps from the
      init, restored as a checkpoint is), a chunk of 25 replays against 25
      eager train_steps three times: equal batches and learning rates every
@@ -246,11 +255,12 @@ launch count set to 0 just before it and read just after (the ranks of
 phases 12 and 13 start from 0 in their own processes and report their
 counts). A wrapper counts the launches it makes; the replays of a captured
 train step run no wrapper, and phase 5 (and phase 12's train chunks on each
-NCCL rank) counts the K1 kernels they run from a trace of the card (phases
-11 and 12 leave the CLIs' replays untraced, so their timers are not the
-profiler's). Then one JSON line with the kernels (K2 and
-K3 counted over phases 6 + 9 + 11 + 13 + 14 and 8 + 9 + 11 + 13 + 14, K1
-over 4 + 5 + 11 + 12 + 14), and last {"ok": true, "device": ...}.
+NCCL rank) counts the K1 (and, on one card, K4) kernels they run from a
+trace of the card (phases 11 and 12 leave the CLIs' replays untraced, so
+their timers are not the profiler's). Then one JSON line with the kernels
+(K2 and K3 counted over phases 6 + 9 + 11 + 13 + 14 and 8 + 9 + 11 + 13 +
+14, K1 over 4 + 5 + 11 + 12 + 14, K4 over 4 + 5), and last {"ok": true,
+"device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -332,6 +342,19 @@ TRAINER_ITERATIONS, TRAINER_GATES, TRAINER_CHECKPOINT, TRAINER_LOG = 50, 20, 30,
 # the gates on lost kernels: the counts are checked)
 K1_KERNELS = ("blurpool_down_kernel", "blurpool_up_kernel")
 TRACE_STEPS = 5
+# K4-fwd and K4-bwd as a trace of the card names them (csrc/tracker_head.cu),
+# and their launches a train step with the gates off / on: the flow term's
+# head; then also the cycle filter's two (no gradient) and the cycle loss's
+# one, which takes a backward as the flow term's does
+K4_KERNELS = ("head_conv_fwd_kernel", "head_conv_bwd_kernel")
+HEAD_LAUNCHES = {False: (1, 1), True: (len(HEAD_CALLS), 2)}
+# the head's maps in a train step with the gates on, on the 67×121 grid:
+# (maps a call, forward calls, backward calls) for the flow term's batch, a
+# cycle-filter prediction and the cycle loss's sources and targets
+HEAD_MAPS = ((512, 1, 1), (1024, 2, 0), (2048, 1, 1))
+# FLOP a pixel: conv1 and conv2, 144 FMAs each, forward; backward conv1
+# again, conv2's transpose, conv1's transpose and both weight gradients
+HEAD_FWD_FLOP, HEAD_BWD_FLOP = 2 * 2 * 144, 5 * 2 * 144
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(REPO_DIR, "build", "chip_smoke")
 # phase 14's goldens, made by scripts/gen_full_width_golden.py
@@ -406,9 +429,11 @@ def reset_counts():
     replays, to 0."""
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import head_conv as hc
     from dino_tracker_tpu_torch.ops import window_gather as wg
     from dino_tracker_tpu_torch.training.step_graph import StepGraph
     bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
+    hc.head_conv_cuda.launches = hc.head_conv_cuda_bwd.launches = 0
     fa.flash_attention_cuda.launches = 0
     wg.corr_lookup_cuda.launches = 0
     StepGraph.captures = StepGraph.replays = 0
@@ -549,6 +574,113 @@ def phase_kernel_bwd_check(bp, dev):
             **blurpool_bound(TRAIN_SHAPES)}
 
 
+def phase_head_check(dev):
+    """K4-fwd and K4-bwd against the plain chain in float64 (autograd for the
+    backward) at the train step's head shapes, on dyadic data: maps on a 1/32
+    grid, a third of them 0 as after a ReLU, a cotangent on a 1/64 grid that
+    sums to zero on each map as a softmax's does, kernels on a 1/8 grid whose
+    taps sum to 1 as normalised ones do. Every pre-activation is then exact
+    in f32, so both sides take the same ReLU branches (at real-valued inputs
+    a pre-activation within a rounding of zero takes either, and moves g_x by
+    a whole term). Each error is held to 1e-5 of the summed magnitudes of the
+    terms it adds (the plain version on |x|, |weights|, |g_y|; for g_b2 an
+    absolute bound against the cotangent's scale). Timed beside its bound (HEAD_*_FLOP
+    over the f32 peak against 8 or 12 bytes a pixel over the bandwidth, the
+    larger), the plain version (``head_conv_reference``: NCHW cuDNN convs)
+    and, as ``library_ms``, the chain the train step ran before K4 (the
+    head's NHWC ``normalized_conv2d`` calls). Returns K4-fwd's and K4-bwd's
+    rows for the kernels' line, summed over one gates-on step's calls."""
+    from dino_tracker_tpu_torch.models import tracker_head as th
+    from dino_tracker_tpu_torch.ops import head_conv as hc
+    from dino_tracker_tpu_torch.config import TrackerConfig
+    hp, wp = TrackerConfig(video_h=H, video_w=W).feat_hw
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def eighths(*shape, lo=-2, hi=3):
+        return torch.randint(lo, hi, shape, generator=g, device=dev) / 8
+
+    head = th.TrackerHead().to(dev)
+    with torch.no_grad():
+        for conv in (head.conv1, head.conv2):
+            k = eighths(hc.HIDDEN, 9)
+            k[:, 4] += 1 - k.sum(1)  # the taps sum to 1: the normalisation divides by 1
+            conv.weight.copy_(k.reshape(conv.weight.shape))
+            conv.bias.copy_(eighths(*conv.bias.shape, lo=-4, hi=5))
+    ws = [t.detach().contiguous() for t in (th.normalized_weight(head.conv1), head.conv1.bias,
+                                            th.normalized_weight(head.conv2), head.conv2.bias)]
+    step = {d: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "flop": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for b, n_fwd, n_bwd in HEAD_MAPS:
+            x = torch.randint(-10, 32, (b, hp, wp), generator=g, device=dev).clamp_min(0) / 32
+            a = torch.randint(0, 16, (b, hp * wp), generator=g, device=dev)
+            gy = ((a - a.roll(1, 1)) / 64).reshape(b, hp, wp)
+            got = (hc.head_conv_cuda(x, *ws), *hc.head_conv_cuda_bwd(x, gy, *ws[:3]))
+
+            def plain_grads(xx, gg, wws):
+                xx = xx.detach().requires_grad_(True)
+                wws = [w.detach().requires_grad_(True) for w in wws]
+                y = hc.head_conv_reference(xx, *wws)
+                return (y.detach(), *torch.autograd.grad(y, [xx, *wws], gg))
+
+            ref = plain_grads(x.double(), gy.double(), [w.double() for w in ws])
+            mag = plain_grads(x.double().abs(), gy.double().abs(),
+                              [w.double().abs() for w in ws])
+            torch.cuda.synchronize()
+            errs = [((a.double() - r).abs() / m.clamp_min(1e-300)).max().item()
+                    for a, r, m in zip(got, ref, mag)]
+            check(max(errs) <= 1e-5, f"K4 {b}x{hp}x{wp}: errors over the terms' magnitudes "
+                  f"(logits, g_x, g_w1n, g_b1, g_w2n, g_b2) {errs} > 1e-5")
+
+            xr = x.clone().requires_grad_(True)
+            wr = [w.clone().requires_grad_(True) for w in ws]
+            y_plain = hc.head_conv_reference(xr, *wr)
+            cost = x[:, None].clone().requires_grad_(True)
+            feats = torch.relu(th.normalized_conv2d(cost.permute(0, 2, 3, 1), head.conv1))
+            y_lib = th.normalized_conv2d(feats, head.conv2)
+            gy_lib = gy[..., None]
+            pixels = b * hp * wp
+            for d, n, kernel, plain, library, flop, nbytes in (
+                    ("fwd", n_fwd, lambda: hc.head_conv_cuda(x, *ws),
+                     lambda: hc.head_conv_reference(x, *ws),
+                     lambda: th.normalized_conv2d(torch.relu(th.normalized_conv2d(
+                         x[..., None], head.conv1)), head.conv2),
+                     HEAD_FWD_FLOP, 8),
+                    ("bwd", n_bwd, lambda: hc.head_conv_cuda_bwd(x, gy, *ws[:3]),
+                     lambda: torch.autograd.grad(y_plain, [xr, *wr], gy, retain_graph=True),
+                     lambda: torch.autograd.grad(y_lib, [cost, *head.parameters()], gy_lib,
+                                                 retain_graph=True),
+                     HEAD_BWD_FLOP, 12)):
+                with torch.no_grad() if d == "fwd" else contextlib.nullcontext():
+                    k, p, lib = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+                least, by = bound(flop * pixels, nbytes * pixels, F32_FLOPS)
+                err = max(errs) if d == "fwd" else max(errs[1:])
+                print(f"kernel check: K4-{d} {b}x{hp}x{wp} f32: error {err:.3g} of the terms' "
+                      f"magnitudes (bound 1e-5), kernel {k:.4f} ms, its bound {least:.4f} ms "
+                      f"({by}; {least / k:.3f} of it), plain {p:.3f} ms, the cuDNN chain "
+                      f"{lib:.3f} ms; {n} a train step", flush=True)
+                row = step[d]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
+                               ("flop", flop * pixels), ("bytes", nbytes * pixels)):
+                    row[key] += n * v
+            del x, gy, got, ref, mag, xr, wr, y_plain, cost, feats, y_lib
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rows = []
+    for d in ("fwd", "bwd"):
+        row = step.pop(d)
+        row["bound_ms"], row["bound_by"] = bound(row.pop("flop"), row.pop("bytes"), F32_FLOPS)
+        print(f"kernel check: K4-{d} in a train step with the gates on: kernel "
+              f"{row['ms']:.3f} ms, its bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / row['ms']:.3f} of it), the cuDNN chain "
+              f"{row['library_ms']:.3f} ms", flush=True)
+        rows.append(row)
+    return rows
+
+
 def qkv_views(shape, g, dev):
     """q, k, v [B, H, S, 64] as the ViT makes them: permuted views of one bf16
     [B, S, 3·H·64] qkv buffer (models/vit.py)."""
@@ -682,13 +814,19 @@ def phase_slice(bp, dev):
           f"K1 launched {launches} times (K1-bwd "
           f"{bp.blurpool_cuda_bwd.launches}) in the inference path, expected "
           f"{expected} (and 0)")
+    from dino_tracker_tpu_torch.ops import head_conv as hc
+    head_calls = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    check(head_calls[0] >= len(QUERY_FRAMES) and head_calls[1] == 0,
+          f"K4-fwd / K4-bwd launched {head_calls} times in the inference path: every "
+          f"request's head through K4-fwd, no backward")
     print(f"slice: T={T} {W}x{H} C={CHANNELS[-1]} grid {tcfg.feat_hw} bf16: "
           f"refine {refine_s:.3f} s, requests "
           f"{', '.join(f'{s:.3f}' for s in request_s)} s for {N_QUERIES} "
           f"points each, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB, own-frame error max {max(self_px):.2f} px, median track "
           f"distance {np.median(track_px):.2f} px, occluded share "
-          f"{np.mean(occluded):.3f}, K1 launches {launches}", flush=True)
+          f"{np.mean(occluded):.3f}, K1 launches {launches}, K4-fwd launches "
+          f"{head_calls[0]}", flush=True)
     return launches, video, dino
 
 
@@ -889,8 +1027,9 @@ class FollowChoices:
 
 def traced(fn):
     """``fn()`` under torch.profiler tracing the card -> (wall ms, the
-    traced kernels' device ms, [runs of K1-fwd, runs of K1-bwd] as the card
-    ran them, a CUDA graph's replays included, NCCL's kernels' device ms)."""
+    traced kernels' device ms, [runs of K1-fwd, K1-bwd, K4-fwd, K4-bwd] as
+    the card ran them, a CUDA graph's replays included, NCCL's kernels'
+    device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -902,22 +1041,22 @@ def traced(fn):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     nccl = sum(e.self_device_time_total for e in events if "nccl" in e.key.lower()) / 1e3
-    return (wall, busy, [sum(e.count for e in events if k in e.key) for k in K1_KERNELS],
-            nccl)
+    return (wall, busy, [sum(e.count for e in events if k in e.key)
+                         for k in K1_KERNELS + K4_KERNELS], nccl)
 
 
 class TracedReplays:
     """Test-only wrapper of ``step_graph.StepGraph.replay`` (patched in
     while entered): every replay call runs under ``traced``, TRACE_STEPS
-    replays a trace, and ``ran`` sums the K1-fwd and K1-bwd kernels the card
-    ran in replays, which no wrapper counts. (The captures and the steps
+    replays a trace, and ``ran`` sums the K1-fwd, K1-bwd, K4-fwd and K4-bwd
+    kernels the card ran in replays, which no wrapper counts. (The captures and the steps
     replayed are ``StepGraph``'s own counters, which ``reset_counts``
     resets.)"""
 
     def __init__(self):
         from dino_tracker_tpu_torch.training import step_graph
         self.cls = step_graph.StepGraph
-        self.ran = [0, 0]
+        self.ran = [0] * 4
 
     def __enter__(self):
         self._replay = self.cls.replay
@@ -1575,8 +1714,12 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                 lambda: chunk(graph if graphed else eager, gates, graphed, TRACE_STEPS))
             r["busy"][graphed] = (wall / TRACE_STEPS, device_ms / wall, nccl_ms / device_ms)
             if graphed:
-                check(ran == [3 * TRACE_STEPS] * 2, f"gates {gates}: the card ran K1-fwd / "
-                      f"K1-bwd {ran} times in {TRACE_STEPS} replays")
+                check(ran[:2] == [3 * TRACE_STEPS] * 2, f"gates {gates}: the card ran K1-fwd / "
+                      f"K1-bwd {ran[:2]} times in {TRACE_STEPS} replays")
+                # a mesh rank's share of the head's maps may be empty
+                head = [n * TRACE_STEPS for n in HEAD_LAUNCHES[gates]]
+                check(mesh is not None or ran[2:] == head, f"gates {gates}: the card ran "
+                      f"K4-fwd / K4-bwd {ran[2:]} times in {TRACE_STEPS} replays, expected {head}")
         note(f"traced: {r['busy']}")
         graph.release()
         eager.release()
@@ -1914,11 +2057,11 @@ def phase_train_resume(dev, long, tcfg, data, ckpt_folder, log_interval, names, 
 
 
 def phase_train(bp, dev, video, dino, smi, faults=False):
-    """The training slice at full width; returns the K1-fwd and K1-bwd
-    launches of its main path: the timed train_step loop (the wrappers'
-    counts) and the Trainer's run in chunks (the wrappers' counts of its
-    eager warm-up steps, and the kernels the card ran in its replays, traced
-    by torch.profiler). The Trainer's run is R of the resume check: every
+    """The training slice at full width; returns the K1-fwd, K1-bwd, K4-fwd
+    and K4-bwd launches of its main path: the timed train_step loop (the
+    wrappers' counts) and the Trainer's run in chunks (the wrappers' counts of
+    its eager warm-up steps, and the kernels the card ran in its replays,
+    traced by torch.profiler). The Trainer's run is R of the resume check: every
     step recorded (``StepRecorder``, in place before its captures) and its
     state in memory at its checkpoint held to the file bit for bit
     (``SavedAt``, ``compare_saved``). ``faults``: ``phase_train_resume``'s."""
@@ -1975,12 +2118,24 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
     calls = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
     launches = (calls[0] + watch.ran[0], calls[1] + watch.ran[1])
     eager_steps = len(history) + 2 + captures
-    check(calls == (3 * eager_steps,) * 2 and watch.ran == [3 * replays] * 2
+    check(calls == (3 * eager_steps,) * 2 and watch.ran[:2] == [3 * replays] * 2
           and captures == 2 and captures + replays == TRAINER_ITERATIONS,
           f"K1-fwd / K1-bwd: the wrappers launched {calls} times in {eager_steps} eager "
-          f"steps, the card ran {watch.ran} in {replays} replays of "
+          f"steps, the card ran {watch.ran[:2]} in {replays} replays of "
           f"{captures} captures; expected 3 a step, 2 captures (one a set of gates) "
           f"and {TRAINER_ITERATIONS} steps of the Trainer")
+    # K4 by gates: eager steps (the loop's, count_syncs' one and a capture's
+    # warm-up step of each set) and replays (the Trainer's, the gates on from
+    # TRAINER_GATES), each HEAD_LAUNCHES a step
+    from dino_tracker_tpu_torch.ops import head_conv as hc
+    eager = {False: WARMUP_STEPS + OFF_STEPS + 2, True: WARMUP_STEPS - 1 + ON_STEPS + 2}
+    replayed = {False: TRAINER_GATES - 1, True: replays - TRAINER_GATES + 1}
+    head_calls = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    want = [tuple(sum(n[g] * HEAD_LAUNCHES[g][i] for g in (False, True)) for i in (0, 1))
+            for n in (eager, replayed)]
+    check(head_calls == want[0] and tuple(watch.ran[2:]) == want[1],
+          f"K4-fwd / K4-bwd: the wrappers launched {head_calls} times in the eager steps, "
+          f"the card ran {watch.ran[2:]} in the replays; expected {want[0]} and {want[1]}")
     values = torch.stack([torch.stack(list(m.values())) for m in history])
     check(bool(values.isfinite().all()), "a non-finite loss term")
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -2009,7 +2164,9 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
           f"{len(syncs[1])}; the Trainer {TRAINER_ITERATIONS} iterations in chunks (gates "
           f"at {TRAINER_GATES}, checkpoints {steps_saved}, replays traced) {trainer_s:.2f} s: "
           f"{captures} captures, {replays} replays; K1-fwd/K1-bwd launches "
-          f"{launches} (wrappers {calls}, traced in replays {tuple(watch.ran)})", flush=True)
+          f"{launches} (wrappers {calls}, traced in replays {tuple(watch.ran[:2])}); "
+          f"K4-fwd/K4-bwd launches {tuple(a + b for a, b in zip(head_calls, watch.ran[2:]))} "
+          f"(wrappers {head_calls}, traced in replays {tuple(watch.ran[2:])})", flush=True)
     check(syncs == [[], []], f"the train step makes host syncs (gates off / on): {syncs}")
     print(f"train: losses, gates off: {fmt(m_off)}", flush=True)
     print(f"train: losses, gates on: {fmt(m_on)}", flush=True)
@@ -2019,6 +2176,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
                        r_rec.rows(TRAINER_CHECKPOINT, TRAINER_ITERATIONS - TRAINER_CHECKPOINT),
                        faults)
     del r_rec
+    head_launches = tuple(a + b for a, b in zip(head_calls, watch.ran[2:]))
 
     # serve the Trainer's last checkpoint
     t0 = time.perf_counter()
@@ -2031,7 +2189,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
     print(f"train: serve {N_QUERIES} points from state_{TRAINER_ITERATIONS}.pt: "
           f"{time.perf_counter() - t0:.2f} s, tracks finite, occluded share "
           f"{occ.mean():.3f}", flush=True)
-    return launches
+    return (*launches, *head_launches)
 
 
 def phase_train_reference(dev):
@@ -4537,7 +4695,8 @@ def main():
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--train-only", action="store_true",
-                    help="run only the K1 build and the training slice (phase 5)")
+                    help="run only the K1 and K4 builds, K4's kernel check and the "
+                         "inference and training slices (phases 4 and 5)")
     ap.add_argument("--resume-faults", action="store_true",
                     help="with --train-only: then phase 5's resume check from "
                          "checkpoints with each of three planted faults, each of which "
@@ -4555,6 +4714,7 @@ def main():
           "runs the port on an NVIDIA GPU and has no CPU fallback")
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
+    from dino_tracker_tpu_torch.ops import head_conv as hc
     from dino_tracker_tpu_torch.ops import window_gather as wg
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4608,16 +4768,15 @@ def main():
                                raft_path, "--dino-checkpoint", vit_path], n, False, smis, t)
         print_ok()
         return
-    if args.train_only:  # the training slice alone, on phase 4's inputs
-        from dino_tracker_tpu_torch.config import TrackerConfig
-        build_kernels([("blurpool.cu", bp)])
-        video, dino = make_inputs(T, H, W, CHANNELS[-1], TrackerConfig(
-            video_h=H, video_w=W, delta_channels=CHANNELS).feat_hw, dev, 1)
+    if args.train_only:  # the head's kernels, then the slices that run them
+        build_kernels([("blurpool.cu", bp), ("tracker_head.cu", hc)])
+        phase_head_check(dev)
+        _, video, dino = phase_slice(bp, dev)
         phase_train(bp, dev, video, dino, smi, args.resume_faults)
         return
     if args.full_width:  # phase 14 alone
         build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                       ("corr_lookup.cu", wg)])
+                       ("corr_lookup.cu", wg), ("tracker_head.cu", hc)])
         phase_full_width(dev, smi)
         return
     if args.preprocess_frames:  # the preprocess CLI alone
@@ -4625,7 +4784,7 @@ def main():
         phase_preprocess(dev, args.preprocess_frames)
         return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                   ("corr_lookup.cu", wg)])
+                   ("corr_lookup.cu", wg), ("tracker_head.cu", hc)])
     if args.mesh_devices:  # phases 13 and 12 over one card per rank
         phase_other_card(bp, torch.device("cuda", 1))
         root = os.path.join(WORK_DIR, "e2e")
@@ -4654,7 +4813,9 @@ def main():
     k1_bwd = phase_kernel_bwd_check(bp, dev)
     k2 = phase_attention_check(dev)
     k3 = phase_corr_lookup_check(dev)
+    k4 = phase_head_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
+    head_launches = [hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches]
     train_launches = phase_train(bp, dev, video, dino, smi)
     del video, dino
     vit_launches, vit_s = phase_vit(dev)
@@ -4692,11 +4853,12 @@ def main():
         ["--config", os.path.join(e2e_root, "preprocessing.yaml"), "--raft-checkpoint",
          weights[0], "--dino-checkpoint", weights[1]], MESH_RANKS, True, smi, E2E_T)
     full = phase_full_width(dev, smi)
-    print_kernels((k1, k1_bwd, k2, k3),
+    print_kernels((k1, k1_bwd, k2, k3, *k4),
                   (infer_launches + train_launches[0] + e2e[0] + mesh[0] + full[0],
                    train_launches[1] + e2e[1] + mesh[1] + full[1],
                    vit_launches + pre_k2 + e2e[2] + mesh_pre[0] + full[2],
-                   raft_launches + pre_k3 + e2e[3] + mesh_pre[1] + full[3]))
+                   raft_launches + pre_k3 + e2e[3] + mesh_pre[1] + full[3],
+                   head_launches[0] + train_launches[2], head_launches[1] + train_launches[3]))
     print_ok()
 
 
@@ -4704,14 +4866,19 @@ def print_kernels(numbers, launches):
     """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
     K3 also the preprocess CLI's and every rank's of phase 13, every kernel
     also the whole system's and phase 14's, K1 also every rank's of phase
-    12), each counted from 0; K1 ms / plain_ms /
+    12), each counted from 0; K4 over phases 4 and 5; K1 ms / plain_ms /
     bound_ms: the sum over its three bf16 shapes; K2's at the ViT stage's
-    shape; K3's at one decode batch's."""
+    shape; K3's at one decode batch's; K4's over one gates-on train step's
+    head calls (its library_ms the head's cuDNN chain)."""
     rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),
             ("blurpool_up_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:67"),
             ("flash_attention", "flash_attention.cu",
              "dino_tracker_tpu/ops/flash_attention.py:27"),
-            ("corr_lookup", "corr_lookup.cu", "dino_tracker_tpu/ops/window_gather.py:37"))
+            ("corr_lookup", "corr_lookup.cu", "dino_tracker_tpu/ops/window_gather.py:37"),
+            ("head_conv_fwd", "tracker_head.cu",
+             "none (XLA's convs: dino_tracker_tpu/models/tracker_head.py normalized_conv2d)"),
+            ("head_conv_bwd", "tracker_head.cu",
+             "none (XLA's conv VJPs: dino_tracker_tpu/models/tracker_head.py)"))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dino_tracker_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": n, **nums}

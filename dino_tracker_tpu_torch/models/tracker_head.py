@@ -4,7 +4,10 @@ dino_tracker_tpu/models/tracker_head.py).
 Two spatially-sum-normalized 3×3 convs refine the B×1×H'×W' correlation map;
 the softmax heatmap is soft-argmaxed inside a radius-35 px circle centered on
 the raw map's hard argmax, on the patch-center pixel grid, and the point is
-normalized to (-1, 1). Runs in f32.
+normalized to (-1, 1). Runs in f32. The convs, their biases and the ReLU
+between them dispatch on the device: CPU maps take the plain chain of
+``normalized_conv2d`` calls, CUDA maps kernel K4 (``ops/head_conv.py``) with
+the normalised weights.
 """
 
 from __future__ import annotations
@@ -15,20 +18,26 @@ import torch
 from torch import nn
 
 from . import nn as pnn
+from ..ops import head_conv
 from ..utils import coords as coord_utils
 
 EPS = 1e-8
 
 
-def normalized_conv2d(x_nhwc: torch.Tensor, conv: pnn.Conv) -> torch.Tensor:
-    """Conv whose weights are divided by their per-(out, in) spatial sum,
+def normalized_weight(conv: pnn.Conv) -> torch.Tensor:
+    """The conv's weights divided by their per-(out, in) spatial sum,
     sign-guarded to ±1e-8 where |sum| < 1e-8 (reference conv_norm.py:34-46)."""
     w = conv.weight  # OIHW
     w_sum = w.sum(dim=(2, 3), keepdim=True)
     w_sum = torch.where(w_sum.abs() < EPS,
                         torch.where(w_sum >= 0, EPS, -EPS), w_sum)
-    return pnn.conv2d(x_nhwc, w / w_sum, conv.bias,
-                      padding=w.shape[-1] // 2)
+    return w / w_sum
+
+
+def normalized_conv2d(x_nhwc: torch.Tensor, conv: pnn.Conv) -> torch.Tensor:
+    """Conv with ``normalized_weight``."""
+    return pnn.conv2d(x_nhwc, normalized_weight(conv), conv.bias,
+                      padding=conv.weight.shape[-1] // 2)
 
 
 def hard_argmax(cost_volume_b1hw: torch.Tensor) -> torch.Tensor:
@@ -64,9 +73,15 @@ class TrackerHead(nn.Module):
         row = argmax_flat // wp
         col = argmax_flat % wp
 
-        x = cost_volume_b1hw.permute(0, 2, 3, 1)
-        x = torch.relu(normalized_conv2d(x, self.conv1))
-        x = normalized_conv2d(x, self.conv2)
+        if dev.type == "cpu":
+            x = cost_volume_b1hw.permute(0, 2, 3, 1)
+            x = torch.relu(normalized_conv2d(x, self.conv1))
+            x = normalized_conv2d(x, self.conv2)
+        else:
+            x = head_conv.head_conv_cuda(
+                cost_volume_b1hw.reshape(b, hp, wp).contiguous(),
+                normalized_weight(self.conv1), self.conv1.bias,
+                normalized_weight(self.conv2), self.conv2.bias)
         heatmap = torch.softmax(x.reshape(b, hp * wp), dim=-1).reshape(b, hp, wp)
 
         grid = coord_utils.soft_argmax_pixel_grid(video_h, video_w, patch_size,

@@ -22,3 +22,10 @@ def on_device(device: torch.device):
     yield its current stream's handle (``cudaStream_t`` as an int)."""
     with torch.cuda.device(device):
         yield torch.cuda.current_stream(device).cuda_stream
+
+
+def count_launch(wrapper):
+    """One more launch on ``wrapper.launches``, unless a CUDA graph capture
+    only recorded it (its replays run no Python)."""
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        wrapper.launches += 1

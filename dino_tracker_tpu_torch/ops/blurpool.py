@@ -79,13 +79,6 @@ def _check_hw(h: int, w: int):
         raise ValueError(f"reflect pad 2 needs H, W >= 3, got H={h}, W={w}")
 
 
-def _count(wrapper):
-    """One more launch on ``wrapper``'s count, unless a CUDA graph capture
-    only recorded it (its replays run no Python)."""
-    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
-        wrapper.launches += 1
-
-
 def _launch(x: torch.Tensor) -> torch.Tensor:
     _check(x, "blurpool_cuda")
     _check_hw(x.shape[1], x.shape[2])
@@ -98,7 +91,7 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
                                      _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_down_nhwc launch failed: CUDA error {err}")
-    _count(blurpool_cuda)
+    _guard.count_launch(blurpool_cuda)
     return y
 
 
@@ -124,7 +117,7 @@ def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
                                    _DTYPE_CODE[g_nhwc.dtype], stream)
     if err != 0:
         raise RuntimeError(f"blurpool_up_nhwc launch failed: CUDA error {err}")
-    _count(blurpool_cuda_bwd)
+    _guard.count_launch(blurpool_cuda_bwd)
     return gx
 
 

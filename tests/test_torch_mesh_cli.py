@@ -103,7 +103,8 @@ def test_each_rank_reports_its_own_timers(trained):
             slowest = stages[f"train/steps_gates_{gates}/slowest_rank"]["total_s"]
             assert 0 < own <= slowest
         assert set(report["launches"]) == {"blurpool_down_nhwc", "blurpool_up_nhwc",
-                                           "flash_attention", "corr_lookup"}
+                                           "flash_attention", "corr_lookup",
+                                           "head_conv_fwd", "head_conv_bwd"}
     assert "train/checkpoint" in two[0]["stages"]      # rank 0 writes
     assert "train/checkpoint" not in two[1]["stages"]
 
