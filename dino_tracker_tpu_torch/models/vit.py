@@ -7,20 +7,28 @@ that grid (reference models/extractor.py:41-85). Facets: per-block token
 outputs and per-block q/k/v slices (extractor.py:137-267).
 
 Parameters are the DINOv2 state-dict keys (``patch_embed.proj.*``,
-``cls_token``, ``pos_embed``, ``blocks.i.{norm1,attn.qkv,attn.proj,norm2,
-mlp.fc1,mlp.fc2}.*``, ``blocks.i.ls{1,2}.gamma``); the module is created
-empty and filled by ``load_state_dict`` (``models/vit_convert.py``).
+``cls_token``, ``pos_embed``, ``blocks.i.{norm1,attn.qkv,attn.proj,norm2}.*``,
+the FFN's ``blocks.i.mlp.{fc1,fc2}.*`` (GELU MLP) or
+``blocks.i.mlp.{w12,w3}.*`` (SwiGLU, ViT-g/14's ``swiglufused``),
+``blocks.i.ls{1,2}.gamma``); the module is created empty and filled by
+``load_state_dict`` (``models/vit_convert.py``).
 
 Numerics, given a compute dtype ``cd`` (``PreprocessConfig.compute_dtype``):
 every parameter is rounded to ``cd`` (JAX ``vit.py:287-291``); the patch
 embedding runs in ``cd`` and is rounded to it; the residual stream, the
-LayerNorm statistics (eps 1e-6), GELU (exact erf form) and the layerscale
-products are f32; the operands of the four linears and of attention are
-``cd`` with f32 accumulation. With ``cd`` = bf16 this is the declared
+LayerNorm statistics (eps 1e-6), GELU (exact erf form) or the SwiGLU gate
+silu(a)·b, and the layerscale products are f32, the FFN's hidden activation
+rounded to ``cd`` before its second linear; the operands of the four linears
+and of attention are ``cd`` with f32 accumulation. With ``cd`` = bf16 this is the declared
 contract; the JAX package computes its activations in f32 at any grid other
 than the pretrain grid, because its f32 pos-embed resize promotes the
 residual stream (ROADMAP Queue C). Attention goes through
 ``ops/attention.py``: K2 on CUDA tensors, the plain version on the CPU.
+
+Each block's attention and FFN are the spans ``vit/attention`` and
+``vit/ffn`` (``utils/profiling.py``): no fence and no log line, so outside a
+profiler they count calls and enqueue seconds only; a traced run gives each
+the kernels it launched.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..parallel import mesh as mesh_lib
+from ..utils.profiling import stage_timer
 from .nn import _exact_f32_convs, exact_f32_matmuls
 
 
@@ -48,17 +57,30 @@ class ViTConfig:
     pretrain_grid: int = 37  # √N of the pretrain pos-embed (518/14)
     layerscale: bool = True
     ln_eps: float = 1e-6
+    ffn: str = "mlp"  # "mlp": fc1, GELU, fc2; "swiglu": w12, silu(a)·b, w3
+    ffn_hidden: Optional[int] = None  # the FFN's hidden width; None: mlp_ratio·D
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.ffn_hidden or self.mlp_ratio * self.embed_dim
 
     @classmethod
     def for_model(cls, model_name: str) -> "ViTConfig":
         """dinov2_vit{s,b,l,g}14 (facebookresearch/dinov2) when the name
         contains "v2", else DINO-v1 dino_vit{s,b}{8,16} (patch 8/16,
-        pretrained at 224, no layerscale)."""
+        pretrained at 224, no layerscale). ViT-g/14 is DINOv2's
+        ``vit_giant2``: SwiGLU FFNs of hidden width
+        (int(4·1536·2/3) + 7) // 8 · 8 = 4,096. Register variants
+        (``..._reg``) are not supported."""
+        if "_reg" in model_name:
+            raise ValueError(f"{model_name}: DINOv2 models with register tokens "
+                             "are not supported")
         presets = {
             "s": dict(embed_dim=384, depth=12, num_heads=6),
             "b": dict(embed_dim=768, depth=12, num_heads=12),
             "l": dict(embed_dim=1024, depth=24, num_heads=16),
-            "g": dict(embed_dim=1536, depth=40, num_heads=24),
+            "g": dict(embed_dim=1536, depth=40, num_heads=24, ffn="swiglu",
+                      ffn_hidden=4096),
         }
         for key, kw in presets.items():
             if f"vit{key}" not in model_name:
@@ -104,20 +126,28 @@ def _scale(y: torch.Tensor, ls, cd: torch.dtype) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """x += ls1·attn(norm1(x)); x += ls2·mlp(norm2(x)), residual in f32."""
+    """x += ls1·attn(norm1(x)); x += ls2·ffn(norm2(x)), residual in f32. The
+    FFN is fc2(gelu(fc1(y))) or, for SwiGLU, w3(silu(a)·b) with
+    [a | b] = w12(y)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        d, hidden = cfg.embed_dim, cfg.mlp_ratio * cfg.embed_dim
-        self.num_heads, self.eps = cfg.num_heads, cfg.ln_eps
+        d, hidden = cfg.embed_dim, cfg.hidden_dim
+        self.num_heads, self.eps, self.swiglu = cfg.num_heads, cfg.ln_eps, cfg.ffn == "swiglu"
+        if cfg.ffn not in ("mlp", "swiglu"):
+            raise ValueError(f"unknown ffn {cfg.ffn!r}: 'mlp' or 'swiglu'")
         self.norm1 = _Params(weight=(d,), bias=(d,))
         self.attn = nn.Module()
         self.attn.qkv = _Params(weight=(3 * d, d), bias=(3 * d,))
         self.attn.proj = _Params(weight=(d, d), bias=(d,))
         self.norm2 = _Params(weight=(d,), bias=(d,))
         self.mlp = nn.Module()
-        self.mlp.fc1 = _Params(weight=(hidden, d), bias=(hidden,))
-        self.mlp.fc2 = _Params(weight=(d, hidden), bias=(d,))
+        if self.swiglu:
+            self.mlp.w12 = _Params(weight=(2 * hidden, d), bias=(2 * hidden,))
+            self.mlp.w3 = _Params(weight=(d, hidden), bias=(d,))
+        else:
+            self.mlp.fc1 = _Params(weight=(hidden, d), bias=(hidden,))
+            self.mlp.fc2 = _Params(weight=(d, hidden), bias=(d,))
         self.ls1 = _Params(gamma=(d,)) if cfg.layerscale else None
         self.ls2 = _Params(gamma=(d,)) if cfg.layerscale else None
 
@@ -125,15 +155,23 @@ class Block(nn.Module):
         """x: B×S×D f32 -> (x, qkv B×S×3D in cd)."""
         b, s, d = x.shape
         h = self.num_heads
-        qkv = _linear(_layer_norm(x, self.norm1, self.eps, cd), self.attn.qkv)
-        # [q | k | v] on the last axis, each (b, s, h, hd) -> (b, h, s, hd)
-        q, k, v = qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
-        a = multi_head_attention(q, k, v, 1.0 / math.sqrt(d // h))
-        a = _linear(a.transpose(1, 2).reshape(b, s, d), self.attn.proj)
-        x = x + _scale(a, self.ls1, cd)
-        y = _linear(_layer_norm(x, self.norm2, self.eps, cd), self.mlp.fc1)
-        y = _linear(F.gelu(y.float(), approximate="none").to(cd), self.mlp.fc2)
-        return x + _scale(y, self.ls2, cd), qkv
+        with stage_timer("vit/attention", log=False):
+            qkv = _linear(_layer_norm(x, self.norm1, self.eps, cd), self.attn.qkv)
+            # [q | k | v] on the last axis, each (b, s, h, hd) -> (b, h, s, hd)
+            q, k, v = qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
+            a = multi_head_attention(q, k, v, 1.0 / math.sqrt(d // h))
+            a = _linear(a.transpose(1, 2).reshape(b, s, d), self.attn.proj)
+            x = x + _scale(a, self.ls1, cd)
+        with stage_timer("vit/ffn", log=False):
+            y = _layer_norm(x, self.norm2, self.eps, cd)
+            if self.swiglu:
+                g, u = _linear(y, self.mlp.w12).chunk(2, dim=-1)
+                y = _linear((F.silu(g.float()) * u.float()).to(cd), self.mlp.w3)
+            else:
+                y = _linear(F.gelu(_linear(y, self.mlp.fc1).float(),
+                                   approximate="none").to(cd), self.mlp.fc2)
+            x = x + _scale(y, self.ls2, cd)
+        return x, qkv
 
 
 class VisionTransformer(nn.Module):

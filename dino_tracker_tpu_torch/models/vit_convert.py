@@ -4,7 +4,8 @@ package's ViT pytree carried across (port of
 
 The port's ``VisionTransformer`` uses the DINOv2 state-dict keys, so a
 DINOv2 checkpoint loads as it is, minus the keys the feature extractor does
-not use (``mask_token``, heads, ...). The JAX pytree stores linears as
+not use (``mask_token``, heads, ...); the FFN's keys follow the preset
+(``mlp.fc1``/``mlp.fc2``, or ``mlp.w12``/``mlp.w3`` for ViT-g/14's SwiGLU). The JAX pytree stores linears as
 (din, dout) and the patch embedding as HWIO; the port's layout is torch's
 (dout, din) and OIHW.
 """
@@ -20,7 +21,8 @@ from .vit import ViTConfig, VisionTransformer
 
 
 def vit_state_keys(cfg: ViTConfig) -> list:
-    """The state-dict keys of ``VisionTransformer(cfg)``."""
+    """The state-dict keys of ``VisionTransformer(cfg)`` (those of the DINOv2
+    checkpoint it loads, less the unused ones)."""
     with torch.device("meta"):
         return list(VisionTransformer(cfg).state_dict().keys())
 
@@ -50,7 +52,9 @@ def load_dinov2_state_dict(path_or_sd: Union[str, Mapping],
 
 def vit_state_from_jax(params) -> Dict[str, torch.Tensor]:
     """The JAX ViT pytree (``dino_tracker_tpu/models/vit.py`` layout, arrays
-    or numpy) -> the port's state dict of f32 CPU tensors."""
+    or numpy) -> the port's state dict of f32 CPU tensors. GELU MLPs only
+    (``mlp.fc1``/``mlp.fc2``), as the JAX ViT has no other FFN: a SwiGLU
+    ViT-g/14 loads from a DINOv2 checkpoint (``load_dinov2_state_dict``)."""
     def t(a, perm=None):
         a = np.array(a, np.float32)  # a writable copy
         return torch.from_numpy(np.ascontiguousarray(

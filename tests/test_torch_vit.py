@@ -109,11 +109,16 @@ def test_for_model_presets():
     v2 = pvit.ViTConfig.for_model("dinov2_vitl14")
     assert (v2.embed_dim, v2.depth, v2.num_heads, v2.patch_size, v2.layerscale
             ) == (1024, 24, 16, 14, True)
-    for name in ("dinov2_vits14", "dinov2_vitb14", "dinov2_vitg14", "dino_vits8",
-                 "dino_vitb16"):
+    for name in ("dinov2_vits14", "dinov2_vitb14", "dino_vits8", "dino_vitb16"):
         p, j = pvit.ViTConfig.for_model(name), jvit.ViTConfig.for_model(name)
         assert jax_cfg(p) == j, name
         assert p.embed_dim // p.num_heads == 64  # the head dim K2 takes
+    # ViT-g/14 on its own: DINOv2's vit_giant2 has SwiGLU FFNs, which the JAX
+    # package's preset (a GELU MLP) lacks
+    g = pvit.ViTConfig.for_model("dinov2_vitg14")
+    assert (g.embed_dim, g.depth, g.num_heads, g.patch_size, g.layerscale, g.ffn,
+            g.hidden_dim) == (1536, 40, 24, 14, True, "swiglu", 4096)
+    assert g.embed_dim // g.num_heads == 64
     with pytest.raises(ValueError):
         pvit.ViTConfig.for_model("dino_vitl16")
 
