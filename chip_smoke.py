@@ -5,8 +5,8 @@
     python3 chip_smoke.py --raft-frames 50   # phases 1, 2 (K3) and 8 only, at T=50
     python3 chip_smoke.py --preprocess-frames 50   # phases 1, 2 (K2, K3) and 9 only
     python3 chip_smoke.py --e2e-frames 50 [--e2e-iterations K]   # phases 1, 2 and 11 only
-    python3 chip_smoke.py --train-only [--resume-faults]   # phases 1, 2 (K1, K4), 3's K4
-                                             # check, 4 and 5 only
+    python3 chip_smoke.py --train-only [--resume-faults]   # phases 1, 2 (K1, K4, K5), 3's
+                                             # K4 and K5 checks, 4 and 5 only
     python3 chip_smoke.py --mesh-devices 4   # N >= 2 cards: phases 1, 2, the launches on
                                              # cuda:1, phases 13 and 12 over NCCL
     python3 chip_smoke.py --mesh-devices 4 --preprocess-frames 50   # phases 1, 2 (K2,
@@ -17,8 +17,9 @@ Phases, one line or more each (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
   2. build: compiles kernels K1 (csrc/blurpool.cu: K1-fwd blurpool_down_nhwc
      and K1-bwd blurpool_up_nhwc), K2 (csrc/flash_attention.cu), K3
-     (csrc/corr_lookup.cu) and K4 (csrc/tracker_head.cu: K4-fwd head_conv_fwd
-     and K4-bwd head_conv_bwd) with nvcc into build/kernels/, one nvcc per
+     (csrc/corr_lookup.cu), K4 (csrc/tracker_head.cu: K4-fwd head_conv_fwd
+     and K4-bwd head_conv_bwd) and K5 (csrc/batchnorm.cu: the refiner's
+     BatchNorm + ReLU, K5-fwd and K5-bwd) with nvcc into build/kernels/, one nvcc per
      source, all started together; prints each kernel's registers, shared
      memory and spills as ptxas reports them.
   3. kernel check: K1-fwd against its plain PyTorch version at the three
@@ -41,12 +42,19 @@ Phases, one line or more each (any failure raises and exits non-zero):
      head shapes (512, 1024 and 2048 maps of 67×121), each error within 1e-5
      of its terms' summed magnitudes, timed beside its bound, the plain
      version and the head's cuDNN chain (library_ms), and summed over one
-     gates-on step's head calls.
+     gates-on step's head calls; K5-fwd and K5-bwd at the refiner's four
+     layer shapes of an 8-frame train step in bf16, on a cotangent whose
+     statistics term is of the size of its direct term: the output bit for
+     bit the plain BatchNorm + ReLU chain's (nn.batchnorm_plain), the input
+     gradient within 2^-6 of its terms' magnitudes of float64 and summing to
+     about 0 over the rows, the parameter gradients within 1e-5; each timed
+     beside its byte bound (4 and 10 bytes an element), the chain and
+     PyTorch's train-mode F.batch_norm, and summed over a step.
   4. the inference slice at full width: T=50 frames of 854×476, a
      dinov2_vitl14-width (C=1024) feature stack on the 67×121 grid, bf16
      compute, seeded random weights in the JAX package's layout carried over
      by convert.state_from_jax. runtime.make_model_inference refines every
-     frame (DeltaDINO through K1-fwd), then ModelInference.infer serves three
+     frame (DeltaDINO through K1-fwd and K5-fwd), then ModelInference.infer serves three
      requests of 256 query points on frames 0, 24 and 49 (every head through
      K4-fwd).
   5. the training slice at full width: the same video and feature stack,
@@ -65,7 +73,8 @@ Phases, one line or more each (any failure raises and exits non-zero):
      (a capture's warm-up step included), and torch.profiler traces every
      replay, 5 a trace, and counts the kernels the card ran, 3 each a
      replay; K4-fwd and K4-bwd likewise, 1 and 1 a step with the gates off,
-     4 and 2 with them on (HEAD_LAUNCHES).
+     4 and 2 with them on (HEAD_LAUNCHES); K5-fwd and K5-bwd 4 and 4 a step
+     (one a refiner layer), each of K5's four kernels 4 a replay.
      Then, for each set of gates, from one state (30 eager steps from the
      init, restored as a checkpoint is), a chunk of 25 replays against 25
      eager train_steps three times: equal batches and learning rates every
@@ -299,6 +308,11 @@ SELF_TRACK_PX = 50.0
 REAL_SHAPES = [(16, 476, 854, 64), (16, 238, 427, 128), (16, 119, 214, 256)]
 # the three DeltaDINO blurpool inputs of a training step (8-frame set)
 TRAIN_SHAPES = [(8, 476, 854, 64), (8, 238, 427, 128), (8, 119, 214, 256)]
+# the refiner's four BN inputs in an 8-frame train step (K5), and the bytes an
+# element K5 moves at least, bf16: K5-fwd reads x and writes y, K5-bwd reads
+# g and x twice each and writes gx
+BN_SHAPES = TRAIN_SHAPES + [(8, 60, 107, 1024)]
+BN_FWD_BYTES, BN_BWD_BYTES = 4, 10
 # TrainConfig defaults for the occlusion rule
 ANCHOR_COS, COS = 0.7, 0.6
 N_FG_TRAJ = N_BG_TRAJ = 100_000
@@ -347,6 +361,12 @@ TRACE_STEPS = 5
 # head; then also the cycle filter's two (no gradient) and the cycle loss's
 # one, which takes a backward as the flow term's does
 K4_KERNELS = ("head_conv_fwd_kernel", "head_conv_bwd_kernel")
+# K5's kernels as a trace of the card names them (csrc/batchnorm.cu): K5-fwd,
+# then K5-bwd's sums, their block-ordered reduction and the input gradient;
+# each runs once a refiner layer a train step
+K5_KERNELS = ("bn_apply_kernel", "bn_grad_sums_kernel", "bn_reduce_kernel",
+              "bn_grad_apply_kernel")
+BN_LAYERS = len(BN_SHAPES)
 HEAD_LAUNCHES = {False: (1, 1), True: (len(HEAD_CALLS), 2)}
 # the head's maps in a train step with the gates on, on the 67×121 grid:
 # (maps a call, forward calls, backward calls) for the flow term's batch, a
@@ -427,6 +447,7 @@ def bound(flops, nbytes, peak_flops):
 def reset_counts():
     """Set every kernel's launch count, and the train step's captures and
     replays, to 0."""
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import head_conv as hc
@@ -434,6 +455,7 @@ def reset_counts():
     from dino_tracker_tpu_torch.training.step_graph import StepGraph
     bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
     hc.head_conv_cuda.launches = hc.head_conv_cuda_bwd.launches = 0
+    bn.batchnorm_cuda.launches = bn.batchnorm_cuda_bwd.launches = 0
     fa.flash_attention_cuda.launches = 0
     wg.corr_lookup_cuda.launches = 0
     StepGraph.captures = StepGraph.replays = 0
@@ -681,6 +703,166 @@ def phase_head_check(dev):
     return rows
 
 
+def bn_grad_float64(x, gy, weight, mean, var, mask, relu, eps=1e-5):
+    """K5-bwd's train-mode quantities in float64 from bf16 x and gy: the
+    input gradient inv·w·(g′ − Σg′/n − x̂·Σg′x̂/n), the sums [Σg′, Σg′x̂], the
+    magnitudes m = |inv·w|·(|g′| + Σ|g′|/n + |x̂|·Σ|g′x̂|/n) of its terms and
+    [Σ|g′|, Σ|g′x̂|]; g′ is gy where ``mask`` (the chain's output above 0)."""
+    c = x.shape[-1]
+    inv = torch.rsqrt(var.double() + eps)
+    xh = (x.double() - mean.double()) * inv
+    gp = torch.where(mask, gy.double(), 0.0) if relu else gy.double()
+    rows = x.numel() // c
+    gpx = gp * xh
+    sums = torch.cat([gp.reshape(-1, c).sum(0), gpx.reshape(-1, c).sum(0)])
+    abs_sums = torch.cat([gp.abs().reshape(-1, c).sum(0), gpx.abs().reshape(-1, c).sum(0)])
+    del gpx
+    iw = inv * weight.double()
+    gx = iw * (gp - sums[:c] / rows - xh * (sums[c:] / rows))
+    m = iw.abs() * (gp.abs() + abs_sums[:c] / rows + xh.abs() * (abs_sums[c:] / rows))
+    return gx, sums, m, abs_sums
+
+
+def phase_bn_check(dev):
+    """K5-fwd and K5-bwd at the refiner's four BN inputs of an 8-frame train
+    step, bf16, train mode, on conv-output-like data (normal, a per-channel
+    offset) and a cotangent with a per-channel offset and a per-channel
+    multiple of x's normal part besides its noise, so that the input
+    gradient's statistics term inv·w·(Σg′/n + x̂·Σg′x̂/n) is of the size of its
+    direct term. The forward takes the chain's own statistics
+    (``nn.batch_moments``), so its output must equal the plain chain's
+    (``nn.batchnorm_plain``, then the ReLU on layers 0-2) bit for bit. The
+    backward against float64 (``bn_grad_float64``, the ReLU's mask from the
+    chain's output): the input gradient within 2^-6·m entry by entry (three
+    roundings to bf16 of at most 2^-8 of a term each; the chain's own is held
+    to the same), its per-channel sum over the rows, 0 in exact arithmetic,
+    within 2^-6 of the summed m, and the parameter gradients within 1e-5 of
+    the summed magnitudes of their terms. Timed beside the byte bound (K5-fwd
+    4 bytes an element, K5-bwd 10): K5-fwd against the chain's apply alone
+    (its eval mode with the batch's statistics), and with the statistics
+    against the chain in train mode and, as ``library_ms``, PyTorch's
+    train-mode ``F.batch_norm`` on the channels-last view (then
+    ``torch.relu`` on layers 0-2); K5-bwd against autograd of the chain and,
+    as ``library_ms``, of ``F.batch_norm``. Returns K5-fwd's and K5-bwd's rows
+    for the kernels' line, summed over a step's four layers."""
+    from dino_tracker_tpu_torch.models import nn as pnn
+    from dino_tracker_tpu_torch.ops import batchnorm as bn_ops
+    g = torch.Generator(device=dev).manual_seed(5)
+    keys = {"fwd": ("ms", "plain_ms", "library_ms", "with_statistics_ms",
+                    "plain_with_statistics_ms"),
+            "bwd": ("ms", "plain_ms", "library_ms")}
+    step = {d: {"max_abs_err": 0.0, **dict.fromkeys(k, 0.0), "bytes": 0.0}
+            for d, k in keys.items()}
+    for shape in BN_SHAPES:
+        n, h, w, c = shape
+        relu = c <= 256
+        offset = torch.randn(c, generator=g, device=dev)
+        z = torch.randn(shape, generator=g, device=dev)
+        x = (z * 0.5 + offset).bfloat16()
+        g_offset, g_slope = (torch.randn(c, generator=g, device=dev) for _ in range(2))
+        gy = (g_offset + g_slope * z + torch.randn(shape, generator=g, device=dev)).bfloat16()
+        del z
+        bn = pnn.BatchNorm(c).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+            bn.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.3)
+        outs = {}
+        for name, fn in (("k5", pnn.batchnorm), ("plain", pnn.batchnorm_plain)):
+            xr = x.clone().requires_grad_(True)
+            bn.weight.grad = bn.bias.grad = None
+            y, _ = fn(xr, bn, True, relu=relu)
+            y.backward(gy)
+            outs[name] = (y.detach(), xr.grad, bn.weight.grad.clone(), bn.bias.grad.clone())
+            del xr, y
+        check(torch.equal(outs["k5"][0], outs["plain"][0]),
+              f"K5 {shape}: the output differs from the plain chain's")
+        with torch.no_grad():
+            mean, var, _ = pnn.batch_moments(x)
+            inv = torch.rsqrt(var + 1e-5)
+            stat = torch.cat([mean, var, inv])
+            ref_gx, ref_sums, m, abs_sums = bn_grad_float64(x, gy, bn.weight, mean, var,
+                                                            outs["plain"][0] > 0, relu)
+        errs = {}
+        for name, (_, gx, gw, gb) in outs.items():
+            errs[name] = (((gx.double() - ref_gx).abs() / m).max().item(),
+                          (gx.double().reshape(-1, c).sum(0).abs()
+                           / m.reshape(-1, c).sum(0)).max().item(),
+                          ((torch.cat([gb, gw]).double() - ref_sums).abs() / abs_sums)
+                          .max().item())
+        del ref_gx, m
+        check(all(e[0] <= 2 ** -6 and e[1] <= 2 ** -6 and e[2] <= 1e-5 for e in errs.values()),
+              f"K5 {shape}: backward errors against float64 (g_x over its terms' "
+              f"magnitudes, bound 2^-6; the rows' sum of g_x over theirs, bound 2^-6; g_b "
+              f"and g_w over theirs, bound 1e-5): K5 {errs['k5']}, the chain {errs['plain']}")
+        xr = x.clone().requires_grad_(True)
+        y_plain, _ = pnn.batchnorm_plain(xr, bn, True, relu=relu)
+        # the library: train-mode batch_norm on the channels-last view
+        lib_w, lib_b = (t.detach().clone().requires_grad_(True) for t in (bn.weight, bn.bias))
+        x_lib = x.clone().requires_grad_(True)
+        running = [bn.running_mean.clone(), bn.running_var.clone()]
+
+        def library(xx, ww=bn.weight, bb=bn.bias):
+            y = F.batch_norm(xx.permute(0, 3, 1, 2), *running, ww, bb, True, 0.1, 1e-5)
+            return torch.relu(y) if relu else y
+
+        y_lib = library(x_lib, lib_w, lib_b)
+        gy_lib = gy.permute(0, 3, 1, 2)
+        applied = pnn.BatchNorm(c).to(dev)  # the chain's apply alone: eval mode
+        with torch.no_grad():
+            for dst, src in ((applied.weight, bn.weight), (applied.bias, bn.bias),
+                             (applied.running_mean, mean), (applied.running_var, var)):
+                dst.copy_(src)
+        elems = n * h * w * c
+        for d, kernel, plain, lib, with_stats, nbytes, err in (
+                ("fwd", lambda: bn_ops.apply_cuda(x, bn.weight, bn.bias, mean, inv, relu),
+                 lambda: pnn.batchnorm_plain(x, applied, False, relu=relu),
+                 lambda: library(x),
+                 (lambda: pnn.batchnorm(x, bn, True, relu=relu),
+                  lambda: pnn.batchnorm_plain(x, bn, True, relu=relu)), BN_FWD_BYTES, 0.0),
+                ("bwd", lambda: bn_ops.batchnorm_cuda_bwd(gy, x, stat, bn.weight, bn.bias, True,
+                                                          relu),
+                 lambda: torch.autograd.grad(y_plain, [xr, bn.weight, bn.bias], gy,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(y_lib, [x_lib, lib_w, lib_b], gy_lib,
+                                             retain_graph=True),
+                 None, BN_BWD_BYTES, errs["k5"][0])):
+            with torch.no_grad() if d == "fwd" else contextlib.nullcontext():
+                times = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                         "library_ms": cuda_ms(lib)}
+                if with_stats is not None:
+                    times["with_statistics_ms"] = cuda_ms(with_stats[0])
+                    times["plain_with_statistics_ms"] = cuda_ms(with_stats[1])
+            least = nbytes * elems / HBM_BYTES * 1e3
+            what = ("the chain's apply alone" if d == "fwd" else "autograd of the chain")
+            extra = (f"; with the statistics {times['with_statistics_ms']:.4f} ms, the chain "
+                     f"{times['plain_with_statistics_ms']:.3f} ms" if d == "fwd" else "")
+            print(f"kernel check: K5-{d} {n}x{h}x{w}x{c} bf16{' +ReLU' if relu else ''}: "
+                  + (f"error {err:.3g} of its terms' magnitudes (bound 2^-6), "
+                     if d == "bwd" else "output equal to the chain's, ")
+                  + f"kernel {times['ms']:.4f} ms, its bound {least:.4f} ms (bytes; "
+                  f"{least / times['ms']:.3f} of it), {what} {times['plain_ms']:.3f} ms, "
+                  f"F.batch_norm{' + relu' if relu else ''} {times['library_ms']:.3f} ms"
+                  f"{extra}; 1 a train step", flush=True)
+            row = step[d]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            for k, v in times.items():
+                row[k] += v
+            row["bytes"] += nbytes * elems
+        del x, gy, outs, xr, y_plain, stat, x_lib, y_lib, gy_lib
+    rows_out = []
+    for d in ("fwd", "bwd"):
+        row = step.pop(d)
+        row["bound_ms"], row["bound_by"] = row.pop("bytes") / HBM_BYTES * 1e3, "bytes"
+        extra = (f"; with the statistics {row['with_statistics_ms']:.3f} ms, the chain "
+                 f"{row['plain_with_statistics_ms']:.3f} ms" if d == "fwd" else "")
+        print(f"kernel check: K5-{d} in a train step (four layers): kernel {row['ms']:.3f} ms, "
+              f"its bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.3f} of it), "
+              f"the plain chain {row['plain_ms']:.3f} ms, F.batch_norm "
+              f"{row['library_ms']:.3f} ms{extra}", flush=True)
+        rows_out.append(row)
+    return rows_out
+
+
 def qkv_views(shape, g, dev):
     """q, k, v [B, H, S, 64] as the ViT makes them: permuted views of one bf16
     [B, S, 3·H·64] qkv buffer (models/vit.py)."""
@@ -819,6 +1001,11 @@ def phase_slice(bp, dev):
     check(head_calls[0] >= len(QUERY_FRAMES) and head_calls[1] == 0,
           f"K4-fwd / K4-bwd launched {head_calls} times in the inference path: every "
           f"request's head through K4-fwd, no backward")
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
+    bn_calls = (bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    check(bn_calls == (BN_LAYERS * -(-T // 16), 0), f"K5-fwd / K5-bwd launched {bn_calls} "
+          f"times in the inference path, expected {BN_LAYERS} a 16-frame refine chunk "
+          f"(eval mode) and no backward")
     print(f"slice: T={T} {W}x{H} C={CHANNELS[-1]} grid {tcfg.feat_hw} bf16: "
           f"refine {refine_s:.3f} s, requests "
           f"{', '.join(f'{s:.3f}' for s in request_s)} s for {N_QUERIES} "
@@ -1027,9 +1214,9 @@ class FollowChoices:
 
 def traced(fn):
     """``fn()`` under torch.profiler tracing the card -> (wall ms, the
-    traced kernels' device ms, [runs of K1-fwd, K1-bwd, K4-fwd, K4-bwd] as
-    the card ran them, a CUDA graph's replays included, NCCL's kernels'
-    device ms)."""
+    traced kernels' device ms, [runs of K1-fwd, K1-bwd, K4-fwd, K4-bwd and
+    K5's four kernels] as the card ran them, a CUDA graph's replays
+    included, NCCL's kernels' device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1042,21 +1229,21 @@ def traced(fn):
     busy = sum(e.self_device_time_total for e in events) / 1e3
     nccl = sum(e.self_device_time_total for e in events if "nccl" in e.key.lower()) / 1e3
     return (wall, busy, [sum(e.count for e in events if k in e.key)
-                         for k in K1_KERNELS + K4_KERNELS], nccl)
+                         for k in K1_KERNELS + K4_KERNELS + K5_KERNELS], nccl)
 
 
 class TracedReplays:
     """Test-only wrapper of ``step_graph.StepGraph.replay`` (patched in
     while entered): every replay call runs under ``traced``, TRACE_STEPS
-    replays a trace, and ``ran`` sums the K1-fwd, K1-bwd, K4-fwd and K4-bwd
-    kernels the card ran in replays, which no wrapper counts. (The captures and the steps
+    replays a trace, and ``ran`` sums the K1-fwd, K1-bwd, K4-fwd, K4-bwd
+    and K5 kernels the card ran in replays, which no wrapper counts. (The captures and the steps
     replayed are ``StepGraph``'s own counters, which ``reset_counts``
     resets.)"""
 
     def __init__(self):
         from dino_tracker_tpu_torch.training import step_graph
         self.cls = step_graph.StepGraph
-        self.ran = [0] * 4
+        self.ran = [0] * (len(K1_KERNELS) + len(K4_KERNELS) + len(K5_KERNELS))
 
     def __enter__(self):
         self._replay = self.cls.replay
@@ -1718,8 +1905,12 @@ def train_chunks(dev, trainer, cfg, tcfg, data, mesh=None):
                       f"K1-bwd {ran[:2]} times in {TRACE_STEPS} replays")
                 # a mesh rank's share of the head's maps may be empty
                 head = [n * TRACE_STEPS for n in HEAD_LAUNCHES[gates]]
-                check(mesh is not None or ran[2:] == head, f"gates {gates}: the card ran "
-                      f"K4-fwd / K4-bwd {ran[2:]} times in {TRACE_STEPS} replays, expected {head}")
+                check(mesh is not None or ran[2:4] == head, f"gates {gates}: the card ran "
+                      f"K4-fwd / K4-bwd {ran[2:4]} times in {TRACE_STEPS} replays, expected "
+                      f"{head}")
+                check(ran[4:] == [BN_LAYERS * TRACE_STEPS] * len(K5_KERNELS),
+                      f"gates {gates}: the card ran K5's kernels {K5_KERNELS} {ran[4:]} "
+                      f"times in {TRACE_STEPS} replays, {BN_LAYERS} each a step expected")
         note(f"traced: {r['busy']}")
         graph.release()
         eager.release()
@@ -2057,11 +2248,12 @@ def phase_train_resume(dev, long, tcfg, data, ckpt_folder, log_interval, names, 
 
 
 def phase_train(bp, dev, video, dino, smi, faults=False):
-    """The training slice at full width; returns the K1-fwd, K1-bwd, K4-fwd
-    and K4-bwd launches of its main path: the timed train_step loop (the
-    wrappers' counts) and the Trainer's run in chunks (the wrappers' counts of
-    its eager warm-up steps, and the kernels the card ran in its replays,
-    traced by torch.profiler). The Trainer's run is R of the resume check: every
+    """The training slice at full width; returns the K1-fwd, K1-bwd, K4-fwd,
+    K4-bwd, K5-fwd and K5-bwd launches of its main path (K5-bwd's in the
+    replays counted by its input gradient's kernel): the timed train_step
+    loop (the wrappers' counts) and the Trainer's run in chunks (the
+    wrappers' counts of its eager warm-up steps, and the kernels the card ran
+    in its replays, traced by torch.profiler). The Trainer's run is R of the resume check: every
     step recorded (``StepRecorder``, in place before its captures) and its
     state in memory at its checkpoint held to the file bit for bit
     (``SavedAt``, ``compare_saved``). ``faults``: ``phase_train_resume``'s."""
@@ -2133,9 +2325,19 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
     head_calls = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
     want = [tuple(sum(n[g] * HEAD_LAUNCHES[g][i] for g in (False, True)) for i in (0, 1))
             for n in (eager, replayed)]
-    check(head_calls == want[0] and tuple(watch.ran[2:]) == want[1],
+    check(head_calls == want[0] and tuple(watch.ran[2:4]) == want[1],
           f"K4-fwd / K4-bwd: the wrappers launched {head_calls} times in the eager steps, "
-          f"the card ran {watch.ran[2:]} in the replays; expected {want[0]} and {want[1]}")
+          f"the card ran {watch.ran[2:4]} in the replays; expected {want[0]} and {want[1]}")
+    # K5: a wrapper call a refiner layer a direction in each eager step, and
+    # each of its kernels once a layer in each replay
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
+    bn_calls = (bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    check(bn_calls == (BN_LAYERS * eager_steps,) * 2
+          and watch.ran[4:] == [BN_LAYERS * replays] * len(K5_KERNELS),
+          f"K5-fwd / K5-bwd: the wrappers launched {bn_calls} times in {eager_steps} eager "
+          f"steps, the card ran {K5_KERNELS} {watch.ran[4:]} times in {replays} replays; "
+          f"expected {BN_LAYERS} a step each")
+    bn_launches = (bn_calls[0] + watch.ran[4], bn_calls[1] + watch.ran[7])
     values = torch.stack([torch.stack(list(m.values())) for m in history])
     check(bool(values.isfinite().all()), "a non-finite loss term")
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -2165,8 +2367,10 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
           f"at {TRAINER_GATES}, checkpoints {steps_saved}, replays traced) {trainer_s:.2f} s: "
           f"{captures} captures, {replays} replays; K1-fwd/K1-bwd launches "
           f"{launches} (wrappers {calls}, traced in replays {tuple(watch.ran[:2])}); "
-          f"K4-fwd/K4-bwd launches {tuple(a + b for a, b in zip(head_calls, watch.ran[2:]))} "
-          f"(wrappers {head_calls}, traced in replays {tuple(watch.ran[2:])})", flush=True)
+          f"K4-fwd/K4-bwd launches {tuple(a + b for a, b in zip(head_calls, watch.ran[2:4]))} "
+          f"(wrappers {head_calls}, traced in replays {tuple(watch.ran[2:4])}); K5-fwd/K5-bwd "
+          f"launches {bn_launches} (wrappers {bn_calls}, traced in replays "
+          f"{tuple(watch.ran[4:])} of {K5_KERNELS})", flush=True)
     check(syncs == [[], []], f"the train step makes host syncs (gates off / on): {syncs}")
     print(f"train: losses, gates off: {fmt(m_off)}", flush=True)
     print(f"train: losses, gates on: {fmt(m_on)}", flush=True)
@@ -2176,7 +2380,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
                        r_rec.rows(TRAINER_CHECKPOINT, TRAINER_ITERATIONS - TRAINER_CHECKPOINT),
                        faults)
     del r_rec
-    head_launches = tuple(a + b for a, b in zip(head_calls, watch.ran[2:]))
+    head_launches = tuple(a + b for a, b in zip(head_calls, watch.ran[2:4]))
 
     # serve the Trainer's last checkpoint
     t0 = time.perf_counter()
@@ -2189,7 +2393,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
     print(f"train: serve {N_QUERIES} points from state_{TRAINER_ITERATIONS}.pt: "
           f"{time.perf_counter() - t0:.2f} s, tracks finite, occluded share "
           f"{occ.mean():.3f}", flush=True)
-    return (*launches, *head_launches)
+    return (*launches, *head_launches, *bn_launches)
 
 
 def phase_train_reference(dev):
@@ -3270,9 +3474,10 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     """The whole system on the card: cli.run_benchmark (preprocess, train,
     inference for every video, one process) then cli.eval_benchmark, every
     output checked; ``weights`` are the RAFT and ViT checkpoints to reuse
-    (written anew where None). Returns the launches of K1-fwd, K1-bwd, K2
-    and K3."""
+    (written anew where None). Returns the launches of K1-fwd, K1-bwd, K2,
+    K3, K5-fwd and K5-bwd."""
     from dino_tracker_tpu_torch.cli import eval_benchmark, run_benchmark
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
     from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
@@ -3300,7 +3505,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     run_s = time.perf_counter() - t0
     captures, replays = StepGraph.captures, StepGraph.replays
     launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
-                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches,
+                bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
     profiling.reset_stage_timers()
     t0 = time.perf_counter()
     rows = eval_benchmark.main(args[:4] + ["--out-file", csv_path, "--pred-w", str(w),
@@ -3312,13 +3518,15 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     n = len(ids)
     # K1 in the refine (3 launches a 16-frame chunk) and in the train steps
     # the wrappers launch: each capture's warm-up step; the replays' are not
-    # traced here (phase 5 traces them)
+    # traced here (phase 5 traces them); K5 likewise, one a refiner layer
     expected = (n * 3 * -(-t // 16) + 3 * captures, 3 * captures,
                 n * (max(pcfg.dino_layer, pcfg.mask_dino_layer) + 1)
                 * -(-t // pcfg.extract_frames_per_batch),
-                n * pcfg.raft_iters * decode_batches(t))
+                n * pcfg.raft_iters * decode_batches(t),
+                n * BN_LAYERS * -(-t // 16) + BN_LAYERS * captures, BN_LAYERS * captures)
     check(launches == expected and captures + replays == n * iterations,
-          f"K1-fwd / K1-bwd / K2 / K3 launched {launches} times in the whole system, "
+          f"K1-fwd / K1-bwd / K2 / K3 / K5-fwd / K5-bwd launched {launches} times in the "
+          f"whole system, "
           f"expected {expected}; {captures} captured and {replays} replayed "
           f"train steps, expected {n * iterations}")
     for vid in ids:
@@ -3388,7 +3596,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
           f"{mib(cleared - base)}, bound {E2E_MEMORY_MARGIN / 2**20:.0f}); live CUDA "
           f"tensors (count, bytes) {live_cuda_tensors()}; "
           f"launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 {launches[2]}, "
-          f"K3 {launches[3]}; train steps {captures} captured (each a warm-up step), "
+          f"K3 {launches[3]}, K5-fwd {launches[4]}, K5-bwd {launches[5]}; train steps "
+          f"{captures} captured (each a warm-up step), "
           f"{replays} replayed; TrainConfig batch {tcfg.train_batch_size} x "
           f"{tcfg.batch_n_frames} frames, {tcfg.compute_dtype}", flush=True)
     return launches
@@ -3665,7 +3874,8 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
     again past a truncated newest checkpoint, then the step's equality across
     ranks (``mesh_equality``). ``share``: every rank
     on cuda:0 over gloo; else rank r on cuda:r over NCCL. Returns the
-    launches of K1-fwd and K1-bwd over every rank of every run."""
+    launches of K1-fwd, K1-bwd, K5-fwd and K5-bwd over every rank of every
+    run (the wrappers' counts)."""
     from dino_tracker_tpu_torch.cli import inference_benchmark
     from dino_tracker_tpu_torch.cli import train as train_cli
     from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
@@ -3763,25 +3973,30 @@ def phase_mesh(dev, video_dir, train_yaml, bench_pkl, n_ranks, share, smi,
         graphed = w == 1 or not share
         captures = 2 if graphed else 0
         got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["blurpool_up_nhwc"],
+                r["launches"]["batchnorm_fwd"], r["launches"]["batchnorm_bwd"],
                 r["graphs"]["captures"], r["graphs"]["replays"]) for r in trained[w][0]]
         eager = captures if graphed else iterations
-        want = (3 * eager, 3 * eager, captures, iterations - eager)
-        check(got == [want] * w, f"--devices {w} training launched K1-fwd / K1-bwd and "
-              f"made captures / replays {got} per rank, expected {want}")
+        want = (3 * eager, 3 * eager, BN_LAYERS * eager, BN_LAYERS * eager, captures,
+                iterations - eager)
+        check(got == [want] * w, f"--devices {w} training launched K1-fwd / K1-bwd / "
+              f"K5-fwd / K5-bwd and made captures / replays {got} per rank, expected {want}")
         for what, runs in (("inference", served), ("inference past the truncated file",
                                                    fallback)):
-            got = [r["launches"]["blurpool_down_nhwc"] for r in runs[w][0]]
-            check(got == refine(w), f"--devices {w} {what} launched K1-fwd {got} "
-                  f"times per rank, expected {refine(w)}")
+            got = [(r["launches"]["blurpool_down_nhwc"], r["launches"]["batchnorm_fwd"])
+                   for r in runs[w][0]]
+            want = [(k, k // 3 * BN_LAYERS) for k in refine(w)]
+            check(got == want, f"--devices {w} {what} launched K1-fwd / K5-fwd {got} "
+                  f"times per rank, expected {want}")
     if share:
         print(f"mesh: cli.train --devices {n_ranks} --share-device: every rank stepped "
               f"eagerly (0 captures, 3 K1-fwd and K1-bwd a step; gloo collectives go "
               f"through host memory)", flush=True)
-    launches = [0, 0]
+    launches = [0, 0, 0, 0]
     for w in (n_ranks, 1):
         for r in trained[w][0] + served[w][0] + fallback[w][0]:
-            launches[0] += r["launches"]["blurpool_down_nhwc"]
-            launches[1] += r["launches"]["blurpool_up_nhwc"]
+            for i, k in enumerate(("blurpool_down_nhwc", "blurpool_up_nhwc", "batchnorm_fwd",
+                                   "batchnorm_bwd")):
+                launches[i] += r["launches"][k]
     for w in (n_ranks, 1):
         print(f"mesh: cli.train --devices {w} ({how if w > 1 else f'one process on {dev}'}"
               f"), T={t} 854x476, TrainConfig's full width, {iterations} iterations, "
@@ -4621,7 +4836,9 @@ def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
     """Phase 14: each stage's inputs rebuilt and checked against the golden's
     digests, run through the port's entry points on ``dev`` and held to the
     golden; each stage's largest error beside its bound, and its seconds.
-    Returns the launches of K1-fwd, K1-bwd, K2 and K3 in the phase."""
+    Returns the launches of K1-fwd, K1-bwd, K2, K3, K5-fwd and K5-bwd in the
+    phase."""
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import window_gather as wg
@@ -4657,10 +4874,12 @@ def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
         gc.collect()
         torch.cuda.empty_cache()
     launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
-                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches,
+                bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
     print(f"full width: launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 "
           f"{launches[2]} (f32 {k2_by_dtype['float32']}, bf16 {k2_by_dtype['bfloat16']}), "
-          f"K3 {launches[3]}; the phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+          f"K3 {launches[3]}, K5-fwd {launches[4]}, K5-bwd {launches[5]}; the phase "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
     check(all(launches) and all(k2_by_dtype.values()),
           "full width: a kernel did not launch in phase 14")
     return launches
@@ -4695,8 +4914,8 @@ def main():
                     help="training iterations of --e2e-frames (default: "
                          "TrainConfig's total_iterations), gates at half of them")
     ap.add_argument("--train-only", action="store_true",
-                    help="run only the K1 and K4 builds, K4's kernel check and the "
-                         "inference and training slices (phases 4 and 5)")
+                    help="run only the K1, K4 and K5 builds, K4's and K5's kernel checks "
+                         "and the inference and training slices (phases 4 and 5)")
     ap.add_argument("--resume-faults", action="store_true",
                     help="with --train-only: then phase 5's resume check from "
                          "checkpoints with each of three planted faults, each of which "
@@ -4712,6 +4931,7 @@ def main():
     args = ap.parse_args()
     check(torch.cuda.is_available(), "CUDA is not available: this smoke "
           "runs the port on an NVIDIA GPU and has no CPU fallback")
+    from dino_tracker_tpu_torch.ops import batchnorm as bn
     from dino_tracker_tpu_torch.ops import blurpool as bp
     from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.ops import head_conv as hc
@@ -4769,14 +4989,15 @@ def main():
         print_ok()
         return
     if args.train_only:  # the head's kernels, then the slices that run them
-        build_kernels([("blurpool.cu", bp), ("tracker_head.cu", hc)])
+        build_kernels([("blurpool.cu", bp), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
         phase_head_check(dev)
+        phase_bn_check(dev)
         _, video, dino = phase_slice(bp, dev)
         phase_train(bp, dev, video, dino, smi, args.resume_faults)
         return
     if args.full_width:  # phase 14 alone
         build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                       ("corr_lookup.cu", wg), ("tracker_head.cu", hc)])
+                       ("corr_lookup.cu", wg), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
         phase_full_width(dev, smi)
         return
     if args.preprocess_frames:  # the preprocess CLI alone
@@ -4784,7 +5005,7 @@ def main():
         phase_preprocess(dev, args.preprocess_frames)
         return
     build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                   ("corr_lookup.cu", wg), ("tracker_head.cu", hc)])
+                   ("corr_lookup.cu", wg), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
     if args.mesh_devices:  # phases 13 and 12 over one card per rank
         phase_other_card(bp, torch.device("cuda", 1))
         root = os.path.join(WORK_DIR, "e2e")
@@ -4814,8 +5035,10 @@ def main():
     k2 = phase_attention_check(dev)
     k3 = phase_corr_lookup_check(dev)
     k4 = phase_head_check(dev)
+    k5 = phase_bn_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
     head_launches = [hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches]
+    bn_launches = [bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches]
     train_launches = phase_train(bp, dev, video, dino, smi)
     del video, dino
     vit_launches, vit_s = phase_vit(dev)
@@ -4853,23 +5076,33 @@ def main():
         ["--config", os.path.join(e2e_root, "preprocessing.yaml"), "--raft-checkpoint",
          weights[0], "--dino-checkpoint", weights[1]], MESH_RANKS, True, smi, E2E_T)
     full = phase_full_width(dev, smi)
-    print_kernels((k1, k1_bwd, k2, k3, *k4),
+    print_kernels((k1, k1_bwd, k2, k3, *k4, *k5),
                   (infer_launches + train_launches[0] + e2e[0] + mesh[0] + full[0],
                    train_launches[1] + e2e[1] + mesh[1] + full[1],
                    vit_launches + pre_k2 + e2e[2] + mesh_pre[0] + full[2],
                    raft_launches + pre_k3 + e2e[3] + mesh_pre[1] + full[3],
-                   head_launches[0] + train_launches[2], head_launches[1] + train_launches[3]))
+                   head_launches[0] + train_launches[2], head_launches[1] + train_launches[3],
+                   bn_launches[0] + train_launches[4] + e2e[4] + mesh[2] + full[4],
+                   bn_launches[1] + train_launches[5] + e2e[5] + mesh[3] + full[5]))
     print_ok()
 
 
 def print_kernels(numbers, launches):
     """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
-    K3 also the preprocess CLI's and every rank's of phase 13, every kernel
-    also the whole system's and phase 14's, K1 also every rank's of phase
-    12), each counted from 0; K4 over phases 4 and 5; K1 ms / plain_ms /
-    bound_ms: the sum over its three bf16 shapes; K2's at the ViT stage's
-    shape; K3's at one decode batch's; K4's over one gates-on train step's
-    head calls (its library_ms the head's cuDNN chain)."""
+    K3 also the preprocess CLI's and every rank's of phase 13, K1, K2, K3
+    and K5 also the whole system's and phase 14's, K1 and K5 also every
+    rank's of phase 12), each counted from 0; K4 over phases 4 and 5; in
+    phase 5 also the kernels a trace saw in the replays (K5-bwd's by its
+    input gradient's kernel); K1 ms / plain_ms / bound_ms: the sum over its
+    three bf16 shapes; K2's at the ViT stage's shape; K3's at one decode
+    batch's; K4's over one gates-on train step's head calls (its library_ms
+    the head's cuDNN chain); K5's over an 8-frame step's four layers:
+    K5-fwd's ms the apply alone against the chain's apply alone (plain_ms),
+    its with_statistics_ms with the chain's statistics against the chain in
+    train mode (plain_with_statistics_ms) and against PyTorch's train-mode
+    F.batch_norm, then torch.relu on layers 0-2 (library_ms); K5-bwd's
+    against autograd of the chain (plain_ms) and of F.batch_norm
+    (library_ms)."""
     rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),
             ("blurpool_up_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:67"),
             ("flash_attention", "flash_attention.cu",
@@ -4878,7 +5111,11 @@ def print_kernels(numbers, launches):
             ("head_conv_fwd", "tracker_head.cu",
              "none (XLA's convs: dino_tracker_tpu/models/tracker_head.py normalized_conv2d)"),
             ("head_conv_bwd", "tracker_head.cu",
-             "none (XLA's conv VJPs: dino_tracker_tpu/models/tracker_head.py)"))
+             "none (XLA's conv VJPs: dino_tracker_tpu/models/tracker_head.py)"),
+            ("batchnorm_fwd", "batchnorm.cu",
+             "none (XLA's fusion: dino_tracker_tpu/models/nn.py batchnorm)"),
+            ("batchnorm_bwd", "batchnorm.cu",
+             "none (XLA's fusion of its VJP: dino_tracker_tpu/models/nn.py batchnorm)"))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dino_tracker_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": n, **nums}

@@ -99,13 +99,11 @@ class DeltaDINO(nn.Module):
                            dilation=dilation, padding=padding,
                            padding_mode="reflect")
             x, (mean, var) = pnn.batchnorm(x, layer.bn, train=self.training,
-                                           mesh=mesh)
+                                           mesh=mesh, relu=i < n_layers - 1)
             if self.training:
                 with torch.no_grad():
                     layer.bn.running_mean.copy_(mean)
                     layer.bn.running_var.copy_(var)
-            if i < n_layers - 1:
-                x = torch.relu(x)
             if DOWNSAMPLE[i]:
                 x = pnn.blurpool(x, stride=DOWN_STRIDE)
         mats = self.align_matrices(vit_hw, x.shape[1:3], vit_patch_size,

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batchnorm as batchnorm_ops
 from ..ops import blurpool as blurpool_ops
 from ..parallel import mesh as mesh_lib
 
@@ -136,44 +137,78 @@ def conv2d(x_nhwc: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def batch_moments(x_nhwc: torch.Tensor, mesh=None):
+    """The batch's f32 mean, biased variance (E[x²] − mean², clamped at 0,
+    the JAX package's formula) and unbiased variance over the N, H, W axes;
+    with a ``mesh`` of more than one rank, each holding its share of the
+    batch, of the whole batch: the per-channel sum, sum of squares and
+    element count go through one differentiable all-reduce. The plain chain
+    and K5 both take their statistics from here, so K5 normalises with the
+    chain's bits."""
+    xf = x_nhwc.float()
+    if mesh_lib.is_parallel(mesh):
+        c = xf.shape[-1]
+        local = torch.cat([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2)),
+                           xf.new_full((1,), xf.numel() // c)])
+        total = mesh_lib.all_reduce_sum(local, mesh)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        return mean, var, var * (n / torch.clamp(n - 1, min=1))
+    mean = xf.mean(dim=(0, 1, 2))
+    var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+    n = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2]
+    return mean, var, var * (n / max(n - 1, 1))
+
+
 def batchnorm(x_nhwc: torch.Tensor, bn: BatchNorm, train: bool,
-              momentum: float = 0.1, eps: float = 1e-5, mesh=None):
-    """torch BatchNorm2d semantics over the N, H, W axes.
+              momentum: float = 0.1, eps: float = 1e-5, mesh=None, relu: bool = False):
+    """torch BatchNorm2d semantics over the N, H, W axes, then a ReLU where
+    ``relu``.
 
     Statistics and the affine transform compute in f32; the output is cast
     back to x's dtype. In train mode the batch's biased variance normalizes
     and the unbiased one enters the running update. With a ``mesh`` of more
     than one rank, each holding its share of the batch, train mode takes the
-    statistics of the whole batch: the per-channel sum, sum of squares and
-    element count go through one differentiable all-reduce, so every rank
+    statistics of the whole batch (``batch_moments``), so every rank
     normalizes alike and stores the same running statistics (eval mode is
-    per sample and needs none). Returns (out, (new_mean, new_var)); the
-    caller decides whether to store them.
+    per sample and needs none). CPU tensors take the plain chain
+    (``batchnorm_plain``); CUDA tensors the same statistics and then kernel
+    K5 (``ops/batchnorm.py``), which normalises, applies the ReLU and
+    differentiates both. Returns (out, (new_mean, new_var)); the caller
+    decides whether to store them.
     """
+    if x_nhwc.device.type != "cuda":
+        return batchnorm_plain(x_nhwc, bn, train, momentum, eps, mesh, relu)
     if train:
-        xf = x_nhwc.float()
-        if mesh_lib.is_parallel(mesh):
-            c = xf.shape[-1]
-            local = torch.cat([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2)),
-                               xf.new_full((1,), xf.numel() // c)])
-            total = mesh_lib.all_reduce_sum(local, mesh)
-            n = total[2 * c]
-            mean = total[:c] / n
-            var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
-            unbiased = var * (n / torch.clamp(n - 1, min=1))
-        else:
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
-            n = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2]
-            unbiased = var * (n / max(n - 1, 1))
+        with torch.no_grad():  # K5's backward differentiates through them
+            mean, var, unbiased = batch_moments(x_nhwc, mesh)
+        new_stats = ((1 - momentum) * bn.running_mean + momentum * mean,
+                     (1 - momentum) * bn.running_var + momentum * unbiased)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+        new_stats = (mean, var)
+    group = mesh.group if train and mesh_lib.is_parallel(mesh) else None
+    out = batchnorm_ops.batchnorm_cuda(x_nhwc, bn.weight, bn.bias, mean, var, train, relu, eps,
+                                       group)
+    return out, new_stats
+
+
+def batchnorm_plain(x_nhwc: torch.Tensor, bn: BatchNorm, train: bool,
+                    momentum: float = 0.1, eps: float = 1e-5, mesh=None,
+                    relu: bool = False):
+    """``batchnorm`` as a chain of PyTorch ops on any device, differentiated
+    by autograd: the CPU's path and K5's plain version."""
+    if train:
+        mean, var, unbiased = batch_moments(x_nhwc, mesh)
         new_stats = ((1 - momentum) * bn.running_mean + momentum * mean.detach(),
                      (1 - momentum) * bn.running_var + momentum * unbiased.detach())
     else:
         mean, var = bn.running_mean, bn.running_var
         new_stats = (mean, var)
     inv = torch.rsqrt(var + eps)
-    out = (x_nhwc.float() - mean) * inv * bn.weight + bn.bias
-    return out.to(x_nhwc.dtype), new_stats
+    out = ((x_nhwc.float() - mean) * inv * bn.weight + bn.bias).to(x_nhwc.dtype)
+    return (torch.relu(out) if relu else out), new_stats
 
 
 def blurpool(x_nhwc: torch.Tensor, stride: int = 2,

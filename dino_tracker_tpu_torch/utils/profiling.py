@@ -313,13 +313,15 @@ def add_slowest_rank(mesh, prefix: str):
 def kernel_launches() -> Dict[str, int]:
     """Each hand-written kernel's launch count in this process (the
     wrappers' counters, which callers reset)."""
-    from ..ops import blurpool, flash_attention, head_conv, window_gather
+    from ..ops import batchnorm, blurpool, flash_attention, head_conv, window_gather
     return {"blurpool_down_nhwc": blurpool.blurpool_cuda.launches,
             "blurpool_up_nhwc": blurpool.blurpool_cuda_bwd.launches,
             "flash_attention": flash_attention.flash_attention_cuda.launches,
             "corr_lookup": window_gather.corr_lookup_cuda.launches,
             "head_conv_fwd": head_conv.head_conv_cuda.launches,
-            "head_conv_bwd": head_conv.head_conv_cuda_bwd.launches}
+            "head_conv_bwd": head_conv.head_conv_cuda_bwd.launches,
+            "batchnorm_fwd": batchnorm.batchnorm_cuda.launches,
+            "batchnorm_bwd": batchnorm.batchnorm_cuda_bwd.launches}
 
 
 def graph_counts() -> Dict[str, int]:

@@ -104,7 +104,8 @@ def test_each_rank_reports_its_own_timers(trained):
             assert 0 < own <= slowest
         assert set(report["launches"]) == {"blurpool_down_nhwc", "blurpool_up_nhwc",
                                            "flash_attention", "corr_lookup",
-                                           "head_conv_fwd", "head_conv_bwd"}
+                                           "head_conv_fwd", "head_conv_bwd",
+                                           "batchnorm_fwd", "batchnorm_bwd"}
     assert "train/checkpoint" in two[0]["stages"]      # rank 0 writes
     assert "train/checkpoint" not in two[1]["stages"]
 
