@@ -262,14 +262,14 @@ Phases, one line or more each (any failure raises and exits non-zero):
 Each main path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14) runs with every kernel's
 launch count set to 0 just before it and read just after (the ranks of
 phases 12 and 13 start from 0 in their own processes and report their
-counts). A wrapper counts the launches it makes; the replays of a captured
-train step run no wrapper, and phase 5 (and phase 12's train chunks on each
-NCCL rank) counts the K1 (and, on one card, K4) kernels they run from a
-trace of the card (phases 11 and 12 leave the CLIs' replays untraced, so
-their timers are not the profiler's). Then one JSON line with the kernels
-(K2 and K3 counted over phases 6 + 9 + 11 + 13 + 14 and 8 + 9 + 11 + 13 +
-14, K1 over 4 + 5 + 11 + 12 + 14, K4 over 4 + 5), and last {"ok": true,
-"device": ...}.
+counts). ops/_guard.py counts each launch a wrapper makes (K5 its wrapper
+calls); the replays of a captured train step run no wrapper, and phase 5
+(and phase 12's train chunks on each NCCL rank) counts the K1 (and, on one
+card, K4) kernels they run from a trace of the card (phases 11 and 12 leave
+the CLIs' replays untraced, so their timers are not the profiler's). Then
+one JSON line with the kernels (K2 and K3 counted over phases 6 + 9 + 11 +
+13 + 14 and 8 + 9 + 11 + 13 + 14, K1 over 4 + 5 + 11 + 12 + 14, K4 over
+4 + 5), and last {"ok": true, "device": ...}.
 
 The feature stack is a static scene plus per-frame noise, so a query's own
 cell is the correlation peak in every frame and tracks stay near the query.
@@ -284,6 +284,7 @@ import copy
 import dataclasses
 import faulthandler
 import gc
+import importlib
 import json
 import math
 import os
@@ -447,18 +448,17 @@ def bound(flops, nbytes, peak_flops):
 def reset_counts():
     """Set every kernel's launch count, and the train step's captures and
     replays, to 0."""
-    from dino_tracker_tpu_torch.ops import batchnorm as bn
-    from dino_tracker_tpu_torch.ops import blurpool as bp
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
-    from dino_tracker_tpu_torch.ops import head_conv as hc
-    from dino_tracker_tpu_torch.ops import window_gather as wg
+    from dino_tracker_tpu_torch.ops import _guard
     from dino_tracker_tpu_torch.training.step_graph import StepGraph
-    bp.blurpool_cuda.launches = bp.blurpool_cuda_bwd.launches = 0
-    hc.head_conv_cuda.launches = hc.head_conv_cuda_bwd.launches = 0
-    bn.batchnorm_cuda.launches = bn.batchnorm_cuda_bwd.launches = 0
-    fa.flash_attention_cuda.launches = 0
-    wg.corr_lookup_cuda.launches = 0
+    _guard.reset_counts()
     StepGraph.captures = StepGraph.replays = 0
+
+
+def counted(*kernels):
+    """The launch counts of the named kernels since the last reset."""
+    from dino_tracker_tpu_torch.ops import _guard
+    counts = _guard.launch_counts()
+    return tuple(counts[k] for k in kernels)
 
 
 def fence(dev):
@@ -990,19 +990,16 @@ def phase_slice(bp, dev):
         check(self_px[-1] <= SELF_TRACK_PX,
               f"frame {frame}: a query came back {self_px[-1]:.1f} px from "
               f"itself on its own frame (> {SELF_TRACK_PX})")
-    launches = bp.blurpool_cuda.launches
+    launches, k1_bwd = counted("blurpool_down_nhwc", "blurpool_up_nhwc")
     expected = 3 * -(-T // 16)  # 3 blurpools per 16-frame refine chunk
-    check(launches == expected and bp.blurpool_cuda_bwd.launches == 0,
-          f"K1 launched {launches} times (K1-bwd "
-          f"{bp.blurpool_cuda_bwd.launches}) in the inference path, expected "
+    check(launches == expected and k1_bwd == 0,
+          f"K1 launched {launches} times (K1-bwd {k1_bwd}) in the inference path, expected "
           f"{expected} (and 0)")
-    from dino_tracker_tpu_torch.ops import head_conv as hc
-    head_calls = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    head_calls = counted("head_conv_fwd", "head_conv_bwd")
     check(head_calls[0] >= len(QUERY_FRAMES) and head_calls[1] == 0,
           f"K4-fwd / K4-bwd launched {head_calls} times in the inference path: every "
           f"request's head through K4-fwd, no backward")
-    from dino_tracker_tpu_torch.ops import batchnorm as bn
-    bn_calls = (bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    bn_calls = counted("batchnorm_fwd", "batchnorm_bwd")
     check(bn_calls == (BN_LAYERS * -(-T // 16), 0), f"K5-fwd / K5-bwd launched {bn_calls} "
           f"times in the inference path, expected {BN_LAYERS} a 16-frame refine chunk "
           f"(eval mode) and no backward")
@@ -2307,7 +2304,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
             log_interval=TRAINER_LOG)
     trainer_s = time.perf_counter() - t0
     captures, replays = StepGraph.captures, StepGraph.replays
-    calls = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
+    calls = counted("blurpool_down_nhwc", "blurpool_up_nhwc")
     launches = (calls[0] + watch.ran[0], calls[1] + watch.ran[1])
     eager_steps = len(history) + 2 + captures
     check(calls == (3 * eager_steps,) * 2 and watch.ran[:2] == [3 * replays] * 2
@@ -2319,10 +2316,9 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
     # K4 by gates: eager steps (the loop's, count_syncs' one and a capture's
     # warm-up step of each set) and replays (the Trainer's, the gates on from
     # TRAINER_GATES), each HEAD_LAUNCHES a step
-    from dino_tracker_tpu_torch.ops import head_conv as hc
     eager = {False: WARMUP_STEPS + OFF_STEPS + 2, True: WARMUP_STEPS - 1 + ON_STEPS + 2}
     replayed = {False: TRAINER_GATES - 1, True: replays - TRAINER_GATES + 1}
-    head_calls = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    head_calls = counted("head_conv_fwd", "head_conv_bwd")
     want = [tuple(sum(n[g] * HEAD_LAUNCHES[g][i] for g in (False, True)) for i in (0, 1))
             for n in (eager, replayed)]
     check(head_calls == want[0] and tuple(watch.ran[2:4]) == want[1],
@@ -2330,8 +2326,7 @@ def phase_train(bp, dev, video, dino, smi, faults=False):
           f"the card ran {watch.ran[2:4]} in the replays; expected {want[0]} and {want[1]}")
     # K5: a wrapper call a refiner layer a direction in each eager step, and
     # each of its kernels once a layer in each replay
-    from dino_tracker_tpu_torch.ops import batchnorm as bn
-    bn_calls = (bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    bn_calls = counted("batchnorm_fwd", "batchnorm_bwd")
     check(bn_calls == (BN_LAYERS * eager_steps,) * 2
           and watch.ran[4:] == [BN_LAYERS * replays] * len(K5_KERNELS),
           f"K5-fwd / K5-bwd: the wrappers launched {bn_calls} times in {eager_steps} eager "
@@ -2550,7 +2545,6 @@ def phase_vit(dev):
     returns K2's launch count in it and the features' seconds."""
     from dino_tracker_tpu_torch.config import PreprocessConfig, feature_grid_size
     from dino_tracker_tpu_torch.models import vit, vit_convert
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
     from dino_tracker_tpu_torch.preprocessing import fg_mask, split_fg_bg
     from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
     from dino_tracker_tpu_torch.utils import video_io
@@ -2582,7 +2576,7 @@ def phase_vit(dev):
     t2 = time.perf_counter()
     fg, bg = pipe.split_trajectories(trajs)  # masks read back, two .npz banks
     t3 = time.perf_counter()
-    launches = fa.flash_attention_cuda.launches
+    (launches,) = counted("flash_attention")
     peak = torch.cuda.max_memory_allocated() / 2**30
     pipe.join_saves()
     t4 = time.perf_counter()
@@ -2864,7 +2858,6 @@ def phase_raft(dev, t=RAFT_T):
     """Pipeline stage 1 at full width; returns K3's launch count in it."""
     from dino_tracker_tpu_torch.config import PreprocessConfig
     from dino_tracker_tpu_torch.models import raft
-    from dino_tracker_tpu_torch.ops import window_gather as wg
     from dino_tracker_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
     from dino_tracker_tpu_torch.utils import video_io
     cfg = PreprocessConfig()  # RAFT 24 iterations f32, thresholds 1.5 / 2.5
@@ -2881,7 +2874,7 @@ def phase_raft(dev, t=RAFT_T):
     t0 = time.perf_counter()
     trajs, unfiltered = pipe.extract_trajectories_both()
     total = time.perf_counter() - t0
-    launches = wg.corr_lookup_cuda.launches
+    (launches,) = counted("corr_lookup")
     peak = torch.cuda.max_memory_allocated() / 2**30
     batches = decode_batches(t)
     check(launches == cfg.raft_iters * batches,
@@ -2959,7 +2952,7 @@ def conv_table(model, dev, n=8, hw=(60, 107)):
     from CUDA events and the achieved f32 TFLOP/s."""
     from torch import nn
     from dino_tracker_tpu_torch.models import raft
-    from dino_tracker_tpu_torch.models.nn import _exact_f32_convs
+    from dino_tracker_tpu_torch.models.nn import exact_f32
     g = torch.Generator(device=dev).manual_seed(0)
     for name, m in model.update_block.named_modules():
         if not isinstance(m, nn.Conv2d):
@@ -2969,14 +2962,14 @@ def conv_table(model, dev, n=8, hw=(60, 107)):
         times = []
         for layout in (torch.contiguous_format, torch.channels_last):
             xl = x.contiguous(memory_format=layout)
-            with torch.no_grad(), _exact_f32_convs(xl):
+            with torch.no_grad(), exact_f32(xl):
                 times.append(cuda_ms(lambda: m(xl), iters=5, warmup=2))
         print(f"raft: conv {name} {m.in_channels}->{m.out_channels} "
               f"{tuple(m.kernel_size)} x{n}: NCHW {times[0]:.2f} ms "
               f"({flops / times[0] / 1e9:.1f} TFLOP/s), channels-last {times[1]:.2f} ms "
               f"({flops / times[1] / 1e9:.1f} TFLOP/s)", flush=True)
         if name == "encoder.conv":  # as the motion encoder runs it
-            with torch.no_grad(), _exact_f32_convs(x):
+            with torch.no_grad(), exact_f32(x):
                 ms = cuda_ms(lambda: raft._conv_out_padded(m, x, 128), iters=5, warmup=2)
             print(f"raft: conv {name} with 128 outputs, cut to {m.out_channels}: "
                   f"{ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
@@ -3110,8 +3103,6 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     from dino_tracker_tpu_torch.config import (PreprocessConfig, TrainConfig, add_config_paths,
                                                feature_grid_size)
     from dino_tracker_tpu_torch.models import vit
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
-    from dino_tracker_tpu_torch.ops import window_gather as wg
     from dino_tracker_tpu_torch.preprocessing import best_buddies as bb_lib
     from dino_tracker_tpu_torch.structures import load_bb_data
     from dino_tracker_tpu_torch.training import train
@@ -3129,7 +3120,7 @@ def phase_preprocess(dev, t=PREPROCESS_T):
     t0 = time.perf_counter()
     (report,) = preprocess.main(args)
     total = time.perf_counter() - t0
-    launches = (fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches)
+    launches = counted("flash_attention", "corr_lookup")
     peak = torch.cuda.max_memory_allocated() / 2**30
     expected = ((max(cfg.dino_layer, cfg.mask_dino_layer) + 1)
                 * -(-t // cfg.extract_frames_per_batch), cfg.raft_iters * decode_batches(t))
@@ -3231,7 +3222,7 @@ def profile_ambiguity_slab(feats, bb_lib, h, w, stride, rows=8192):
     apart with CUDA events, then the slab's device time by kernel
     (torch.profiler, CUDA activity). Returns (product ms, NMS ms)."""
     from torch.profiler import ProfilerActivity, profile
-    from dino_tracker_tpu_torch.models.nn import exact_f32_matmuls
+    from dino_tracker_tpu_torch.models.nn import exact_f32
     from dino_tracker_tpu_torch.ops import nms
     from dino_tracker_tpu_torch.utils.coords import bb_meshgrid
     fn = bb_lib._normalized_tokens(feats[:2])
@@ -3239,7 +3230,7 @@ def profile_ambiguity_slab(feats, bb_lib, h, w, stride, rows=8192):
     src = fn[1][torch.arange(rows, device=feats.device) % fn.shape[1]]
 
     def product():
-        with exact_f32_matmuls(src):
+        with exact_f32(src):
             return src @ fn[0].T
 
     sim = product()
@@ -3477,11 +3468,7 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     (written anew where None). Returns the launches of K1-fwd, K1-bwd, K2,
     K3, K5-fwd and K5-bwd."""
     from dino_tracker_tpu_torch.cli import eval_benchmark, run_benchmark
-    from dino_tracker_tpu_torch.ops import batchnorm as bn
     from dino_tracker_tpu_torch.config import PreprocessConfig, TrainConfig
-    from dino_tracker_tpu_torch.ops import blurpool as bp
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
-    from dino_tracker_tpu_torch.ops import window_gather as wg
     from dino_tracker_tpu_torch.training.step_graph import StepGraph
     from dino_tracker_tpu_torch.utils import profiling
     pcfg, tcfg = PreprocessConfig(max_frames=t), TrainConfig()
@@ -3504,9 +3491,8 @@ def phase_e2e(dev, t=E2E_T, iterations=E2E_ITERATIONS, checkpoint_interval=E2E_I
     launcher = run_benchmark.main(args + ["--claim-dir", claims])  # replays untraced
     run_s = time.perf_counter() - t0
     captures, replays = StepGraph.captures, StepGraph.replays
-    launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
-                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches,
-                bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    launches = counted("blurpool_down_nhwc", "blurpool_up_nhwc", "flash_attention",
+                       "corr_lookup", "batchnorm_fwd", "batchnorm_bwd")
     profiling.reset_stage_timers()
     t0 = time.perf_counter()
     rows = eval_benchmark.main(args[:4] + ["--out-file", csv_path, "--pred-w", str(w),
@@ -4347,7 +4333,6 @@ def full_width_vit(inp, wd, dev):
     ``wd.vit_layers``, f32 and bf16 -> ({dtype: {layer: T×D×h×w numpy}},
     {dtype: K2 launches})."""
     from dino_tracker_tpu_torch.models import vit, vit_convert
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
     d, depth, heads, mlp, grid = wd.vit
     cfg = vit.ViTConfig(embed_dim=d, depth=depth, num_heads=heads, mlp_ratio=mlp,
                         patch_size=14, pretrain_grid=grid)
@@ -4356,10 +4341,10 @@ def full_width_vit(inp, wd, dev):
     video = torch.from_numpy(inp["frames"]).to(dev)
     out, launches = {}, {}
     for dtype in ("float32", "bfloat16"):
-        before = fa.flash_attention_cuda.launches
+        (before,) = counted("flash_attention")
         feats = vit.extract_feature_video(model, video, stride=7, layer=list(wd.vit_layers),
                                           compute_dtype=_torch_dtype(dtype))
-        launches[dtype] = fa.flash_attention_cuda.launches - before
+        launches[dtype] = counted("flash_attention")[0] - before
         out[dtype] = {layer: f.cpu().numpy() for layer, f in zip(wd.vit_layers, feats)}
     return out, launches
 
@@ -4838,10 +4823,6 @@ def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
     golden; each stage's largest error beside its bound, and its seconds.
     Returns the launches of K1-fwd, K1-bwd, K2, K3, K5-fwd and K5-bwd in the
     phase."""
-    from dino_tracker_tpu_torch.ops import batchnorm as bn
-    from dino_tracker_tpu_torch.ops import blurpool as bp
-    from dino_tracker_tpu_torch.ops import flash_attention as fa
-    from dino_tracker_tpu_torch.ops import window_gather as wg
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     reset_counts()
@@ -4873,9 +4854,8 @@ def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
         del out, inp
         gc.collect()
         torch.cuda.empty_cache()
-    launches = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches,
-                fa.flash_attention_cuda.launches, wg.corr_lookup_cuda.launches,
-                bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches)
+    launches = counted("blurpool_down_nhwc", "blurpool_up_nhwc", "flash_attention",
+                       "corr_lookup", "batchnorm_fwd", "batchnorm_bwd")
     print(f"full width: launches K1-fwd {launches[0]}, K1-bwd {launches[1]}, K2 "
           f"{launches[2]} (f32 {k2_by_dtype['float32']}, bf16 {k2_by_dtype['bfloat16']}), "
           f"K3 {launches[3]}, K5-fwd {launches[4]}, K5-bwd {launches[5]}; the phase "
@@ -4885,19 +4865,29 @@ def phase_full_width(dev, smi, golden_dir=GOLDEN_DIR):
     return launches
 
 
-def build_kernels(sources):
-    """nvcc for each (name, module) at once; prints each source's seconds and
-    what ptxas reports for its kernels."""
+def kernel_modules():
+    """The ops modules that launch the port's counted kernels, in the order of
+    ``ops/_guard.py``'s list."""
+    from dino_tracker_tpu_torch.ops import _guard
+    return [importlib.import_module(f"dino_tracker_tpu_torch.ops.{name}")
+            for name in dict.fromkeys(_guard.KERNELS.values())]
+
+
+def build_kernels(modules=None):
+    """nvcc for each ops module's library at once (by default every kernel
+    module's); prints each source's seconds and what ptxas reports for its
+    kernels."""
     from dino_tracker_tpu_torch.ops import _build
+    modules = modules or kernel_modules()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
-        jobs = {name: pool.submit(mod.load_library) for name, mod in sources}
+    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, together
+        jobs = {mod.LIBRARY: pool.submit(mod.load_library) for mod in modules}
         nvcc_s = {name: job.result()[1] for name, job in jobs.items()}
-    print("build: " + ", ".join(f"csrc/{name} nvcc {s:.2f} s" for name, s in nvcc_s.items())
+    print("build: " + ", ".join(f"csrc/{name}.cu nvcc {s:.2f} s" for name, s in nvcc_s.items())
           + f", all loaded in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in nvcc_s:
-        for kernel, usage in _build.ptxas_report(name.removesuffix(".cu")):
-            print(f"build: ptxas csrc/{name} {kernel}: {usage}", flush=True)
+        for kernel, usage in _build.ptxas_report(name):
+            print(f"build: ptxas csrc/{name}.cu {kernel}: {usage}", flush=True)
 
 
 def main():
@@ -4948,7 +4938,7 @@ def main():
 
     if args.raft_frames:  # stage 1 alone, then where one decode batch's time goes
         from dino_tracker_tpu_torch.models import raft
-        build_kernels([("corr_lookup.cu", wg)])
+        build_kernels([wg])
         eng = phase_raft(dev, args.raft_frames)[3]
         ia, ib = np.zeros(8, np.int64), np.arange(1, 9) % args.raft_frames
         profile_decode(eng, ia, ib)
@@ -4976,7 +4966,7 @@ def main():
         smis = " | ".join(smi_lines[:n])
     if args.mesh_devices and args.preprocess_frames:  # phase 13 alone, over NCCL
         from dino_tracker_tpu_torch.config import PreprocessConfig
-        build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
+        build_kernels([fa, wg])
         t = args.preprocess_frames
         cfg = PreprocessConfig(max_frames=t)
         root = os.path.join(WORK_DIR, "mesh_inputs")
@@ -4989,23 +4979,21 @@ def main():
         print_ok()
         return
     if args.train_only:  # the head's kernels, then the slices that run them
-        build_kernels([("blurpool.cu", bp), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
+        build_kernels([bp, hc, bn])
         phase_head_check(dev)
         phase_bn_check(dev)
         _, video, dino = phase_slice(bp, dev)
         phase_train(bp, dev, video, dino, smi, args.resume_faults)
         return
     if args.full_width:  # phase 14 alone
-        build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                       ("corr_lookup.cu", wg), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
+        build_kernels()
         phase_full_width(dev, smi)
         return
     if args.preprocess_frames:  # the preprocess CLI alone
-        build_kernels([("flash_attention.cu", fa), ("corr_lookup.cu", wg)])
+        build_kernels([fa, wg])
         phase_preprocess(dev, args.preprocess_frames)
         return
-    build_kernels([("blurpool.cu", bp), ("flash_attention.cu", fa),
-                   ("corr_lookup.cu", wg), ("tracker_head.cu", hc), ("batchnorm.cu", bn)])
+    build_kernels()
     if args.mesh_devices:  # phases 13 and 12 over one card per rank
         phase_other_card(bp, torch.device("cuda", 1))
         root = os.path.join(WORK_DIR, "e2e")
@@ -5037,8 +5025,8 @@ def main():
     k4 = phase_head_check(dev)
     k5 = phase_bn_check(dev)
     infer_launches, video, dino = phase_slice(bp, dev)
-    head_launches = [hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches]
-    bn_launches = [bn.batchnorm_cuda.launches, bn.batchnorm_cuda_bwd.launches]
+    head_launches = counted("head_conv_fwd", "head_conv_bwd")
+    bn_launches = counted("batchnorm_fwd", "batchnorm_bwd")
     train_launches = phase_train(bp, dev, video, dino, smi)
     del video, dino
     vit_launches, vit_s = phase_vit(dev)
@@ -5087,6 +5075,19 @@ def main():
     print_ok()
 
 
+# the TPU kernel each kernel of ops/_guard.py's list replaces, in its order
+REPLACES = {
+    "blurpool_down_nhwc": "dino_tracker_tpu/ops/blurpool.py:59",
+    "blurpool_up_nhwc": "dino_tracker_tpu/ops/blurpool.py:67",
+    "flash_attention": "dino_tracker_tpu/ops/flash_attention.py:27",
+    "corr_lookup": "dino_tracker_tpu/ops/window_gather.py:37",
+    "head_conv_fwd":
+        "none (XLA's convs: dino_tracker_tpu/models/tracker_head.py normalized_conv2d)",
+    "head_conv_bwd": "none (XLA's conv VJPs: dino_tracker_tpu/models/tracker_head.py)",
+    "batchnorm_fwd": "none (XLA's fusion: dino_tracker_tpu/models/nn.py batchnorm)",
+    "batchnorm_bwd": "none (XLA's fusion of its VJP: dino_tracker_tpu/models/nn.py batchnorm)"}
+
+
 def print_kernels(numbers, launches):
     """The kernels' JSON line. launches: the sum of the main-path runs (K2 and
     K3 also the preprocess CLI's and every rank's of phase 13, K1, K2, K3
@@ -5103,23 +5104,16 @@ def print_kernels(numbers, launches):
     F.batch_norm, then torch.relu on layers 0-2 (library_ms); K5-bwd's
     against autograd of the chain (plain_ms) and of F.batch_norm
     (library_ms)."""
-    rows = (("blurpool_down_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:59"),
-            ("blurpool_up_nhwc", "blurpool.cu", "dino_tracker_tpu/ops/blurpool.py:67"),
-            ("flash_attention", "flash_attention.cu",
-             "dino_tracker_tpu/ops/flash_attention.py:27"),
-            ("corr_lookup", "corr_lookup.cu", "dino_tracker_tpu/ops/window_gather.py:37"),
-            ("head_conv_fwd", "tracker_head.cu",
-             "none (XLA's convs: dino_tracker_tpu/models/tracker_head.py normalized_conv2d)"),
-            ("head_conv_bwd", "tracker_head.cu",
-             "none (XLA's conv VJPs: dino_tracker_tpu/models/tracker_head.py)"),
-            ("batchnorm_fwd", "batchnorm.cu",
-             "none (XLA's fusion: dino_tracker_tpu/models/nn.py batchnorm)"),
-            ("batchnorm_bwd", "batchnorm.cu",
-             "none (XLA's fusion of its VJP: dino_tracker_tpu/models/nn.py batchnorm)"))
+    from dino_tracker_tpu_torch.ops import _guard
+    check(list(REPLACES) == list(_guard.KERNELS),
+          f"the smoke's kernels {list(REPLACES)} are not ops/_guard.py's {list(_guard.KERNELS)}")
+    library = {mod.__name__.rsplit(".", 1)[1]: mod.LIBRARY for mod in kernel_modules()}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"dino_tracker_tpu_torch/csrc/{source}",
-         "replaces": replaces, "launches": n, **nums}
-        for (name, source, replaces), n, nums in zip(rows, launches, numbers)]}))
+        {"name": name, "route": "cuda",
+         "source": f"dino_tracker_tpu_torch/csrc/{library[module]}.cu",
+         "replaces": REPLACES[name], "launches": n, **nums}
+        for (name, module), n, nums in zip(_guard.KERNELS.items(), launches, numbers,
+                                           strict=True)]}))
 
 
 def print_ok():

@@ -58,37 +58,22 @@ class BatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def _exact_f32_convs(x: torch.Tensor):
-    """cuDNN runs f32 convs in TF32 by default
-    (``torch.backends.cudnn.allow_tf32`` is True), which keeps ~3 decimal
-    digits. The JAX reference means f32 by f32, so f32 convs on CUDA run with
-    TF32 off for the call. The flag is process-wide: not thread-safe."""
+def exact_f32(x: torch.Tensor):
+    """The port's precision rule: f32 means f32. For an f32 CUDA ``x`` the
+    enclosed convs and GEMMs run with TF32 off: cuDNN runs f32 convs in TF32
+    by default (``torch.backends.cudnn.allow_tf32``), and cuBLAS f32 GEMMs
+    where ``torch.backends.cuda.matmul.allow_tf32`` is set (off by default);
+    TF32 keeps ~3 decimal digits, and the JAX reference means f32 by f32.
+    The flags are process-wide: not thread-safe."""
     if x.device.type != "cuda" or x.dtype != torch.float32:
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
-@contextlib.contextmanager
-def exact_f32_matmuls(x: torch.Tensor):
-    """The GEMM counterpart of ``_exact_f32_convs``: cuBLAS runs f32 GEMMs in
-    TF32 when ``torch.backends.cuda.matmul.allow_tf32`` is set (off by
-    default), so f32 GEMMs on CUDA hold it off for the call. Process-wide
-    flag: not thread-safe."""
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class _Conv2d(torch.autograd.Function):
@@ -98,13 +83,13 @@ class _Conv2d(torch.autograd.Function):
     covers the forward only; autograd runs the conv's dgrad and wgrad later,
     after the flag is restored, so an f32 training step on CUDA ran its
     backward convs in TF32. Here the backward calls the convolution backward
-    itself, under ``_exact_f32_convs``."""
+    itself, under ``exact_f32``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, dilation, padding):
         ctx.save_for_backward(x, weight)
         ctx.conf = (dilation, padding, bias.shape)
-        with _exact_f32_convs(x):
+        with exact_f32(x):
             return F.conv2d(x, weight, bias, dilation=dilation, padding=padding)
 
     @staticmethod
@@ -112,7 +97,7 @@ class _Conv2d(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         dilation, padding, bias_shape = ctx.conf
         mask = list(ctx.needs_input_grad[:3])
-        with _exact_f32_convs(x):
+        with exact_f32(x):
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 g, x, weight, list(bias_shape), [1, 1], [padding] * 2,
                 [dilation] * 2, False, [0, 0], 1, mask)

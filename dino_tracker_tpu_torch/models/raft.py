@@ -27,7 +27,6 @@ with 128 outputs (``_conv_out_padded``).
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Mapping, Union
 
 import numpy as np
@@ -36,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import window_gather as wg
-from .nn import _exact_f32_convs, exact_f32_matmuls
+from .nn import exact_f32
 
 HDIM = 128
 CDIM = 128
@@ -219,7 +218,7 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor) -> List[torch.T
     b, c, h, w = fmap1.shape
     f1 = fmap1.float().reshape(b, c, h * w).transpose(1, 2)
     f2 = fmap2.float().reshape(b, c, h * w)
-    with exact_f32_matmuls(f1):
+    with exact_f32(f1):
         corr = torch.matmul(f1, f2) / (float(c) ** 0.5)
     pyramid = [corr.reshape(b * h * w, h, w)]
     for _ in range(CORR_LEVELS - 1):
@@ -266,12 +265,6 @@ def coords_grid(b: int, h: int, w: int, device) -> torch.Tensor:
     return torch.stack([xs, ys])[None].repeat(b, 1, 1, 1)
 
 
-@contextlib.contextmanager
-def _exact_f32(x: torch.Tensor):
-    with _exact_f32_convs(x), exact_f32_matmuls(x):
-        yield
-
-
 @torch.no_grad()
 def raft_encode(model: RAFT, images: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32):
@@ -279,7 +272,7 @@ def raft_encode(model: RAFT, images: torch.Tensor,
     divisible by 8) -> (fmap N×256×h×w, net N×128×h×w, inp N×128×h×w) in
     ``compute_dtype`` at 1/8 resolution."""
     x = (images * 2.0 - 1.0).to(compute_dtype)
-    with _exact_f32(x):
+    with exact_f32(x):
         fmap = model.fnet(x)
         cnet = model.cnet(x)
     return fmap, torch.tanh(cnet[:, :HDIM]), F.relu(cnet[:, HDIM:])
@@ -299,7 +292,7 @@ def raft_decode(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     pyramid = build_corr_pyramid(fmap1, fmap2)
     coords0 = coords_grid(b, h, w, fmap1.device)
     coords1 = coords0.clone()
-    with _exact_f32(net):
+    with exact_f32(net):
         for _ in range(num_iters):
             corr = corr_lookup(pyramid, coords1)
             flow = coords1 - coords0

@@ -44,7 +44,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from ..parallel import mesh as mesh_lib
 from ..utils.profiling import stage_timer
-from .nn import _exact_f32_convs, exact_f32_matmuls
+from .nn import exact_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,7 +239,7 @@ class VisionTransformer(nn.Module):
                 f"smaller variants")
         cd = compute_dtype
         x = frames_nchw.to(cd)
-        with _exact_f32_convs(x), exact_f32_matmuls(x):
+        with exact_f32(x):
             x, (h0, w0) = self.embed(x, stride, cd)
             b, _, d = x.shape
             sel = {"queries": 0, "keys": 1, "values": 2}.get(facet)
@@ -259,7 +259,7 @@ def keys_self_similarity(model: VisionTransformer, frames_nchw: torch.Tensor,
     f32 (reference extractor.py:269-274; JAX ``vit.py:331-342``)."""
     keys = model.forward_features(frames_nchw, stride, [layer], facet="keys")[0][0]
     normed = keys / torch.linalg.vector_norm(keys, dim=-1, keepdim=True).clamp(min=1e-8)
-    with exact_f32_matmuls(normed):
+    with exact_f32(normed):
         return normed @ normed.transpose(1, 2)
 
 
@@ -271,7 +271,7 @@ def attention_maps(model: VisionTransformer, frames_nchw: torch.Tensor, stride: 
     the full S×S logits, so use it at coarse strides only."""
     cd = torch.float32
     x = frames_nchw.to(cd)
-    with _exact_f32_convs(x), exact_f32_matmuls(x):
+    with exact_f32(x):
         x, _ = model.embed(x, stride, cd)
         for blk in model.blocks[:layer]:
             x = blk(x, cd)[0]

@@ -6,14 +6,16 @@ Hopper (``sm_90a``), written into ``<repo>/build/kernels/`` (git-ignored) and
 loaded with ``ctypes``. ptxas reports each kernel's registers, shared memory
 and spills (``-Xptxas -v``) into ``lib<name>.ptxas.txt`` beside the library
 (``ptxas_report``). A library older than its source is rebuilt. Each
-source has its own lock, so the libraries can build in parallel. Nothing
-here runs at import time: the CPU tests import every module of the port on
-machines with no ``nvcc``.
+source has its own lock, so the libraries can build in parallel. ``load``
+builds, loads and binds one library once a process from its ops module's
+signature table. Nothing here runs at import time: the CPU tests import
+every module of the port on machines with no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import os
 import shutil
 import subprocess
@@ -26,7 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_locks = collections.defaultdict(threading.Lock)  # one per library name
+_locks = collections.defaultdict(threading.RLock)  # one per library name
+_loaded = {}  # library name -> its bound library
 
 
 def find_nvcc() -> str:
@@ -60,6 +63,27 @@ def build(name: str) -> tuple[str, float]:
             f.write(proc.stderr)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
         return lib, time.perf_counter() - t0
+
+
+def load(name: str, signatures: dict) -> tuple[ctypes.CDLL, float]:
+    """``csrc/<name>.cu``'s library, built if stale, loaded and bound to
+    ``signatures`` ({entry: (restype, argtypes)}) at its first call in the
+    process; returns it with the seconds spent compiling (0.0 when it was
+    already built or loaded)."""
+    with _locks[name]:
+        if name in _loaded:
+            return _loaded[name], 0.0
+        path, seconds = build(name)
+        _loaded[name] = bind(ctypes.CDLL(path), signatures)
+        return _loaded[name], seconds
+
+
+def bind(lib, signatures: dict):
+    """Set each entry's ``restype`` and ``argtypes`` from ``signatures``."""
+    for entry, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
 
 
 def _ptxas_path(name: str) -> str:

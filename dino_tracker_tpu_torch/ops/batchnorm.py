@@ -41,35 +41,25 @@ import ctypes
 import torch
 import torch.distributed as dist
 
-from . import _guard
+from . import _build, _guard
 
 DTYPES = (torch.bfloat16, torch.float32)
 VEC_BYTES = 16  # a thread's channel vector: one 16-byte load
-
-_lib = None
+LIBRARY = "batchnorm"  # csrc/batchnorm.cu
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each launch: its tensors and sizes as the wrappers below pass them, then the stream
+SIGNATURES = {
+    "bn_sum_blocks": (_I64, (_I64, _I64, _I32, _I32)),
+    "bn_fwd": (_I32, (_P, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _P)),
+    "bn_bwd_sums": (_I32, (_P, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P,
+                           ctypes.c_float, _P)),
+    "bn_bwd_apply": (_I32, (_P, _P, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P, _I32, _P,
+                            _P))}
 _sms = {}  # device index -> SMs
 
 
-def load_library() -> tuple[ctypes.CDLL, float]:
-    """Build (at first use) and bind the kernel library; returns it with the
-    seconds spent compiling (0.0 when it was already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return _lib, 0.0
-    from . import _build
-    path, seconds = _build.build("batchnorm")
-    lib = ctypes.CDLL(path)
-    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.bn_sum_blocks.restype = i64
-    lib.bn_sum_blocks.argtypes = [i64, i64, i32, i32]
-    lib.bn_fwd.restype = i32
-    lib.bn_fwd.argtypes = [p, p, i32, i32, i64, i64, i32, p, p, p, p, i32, p]
-    lib.bn_bwd_sums.restype = i32
-    lib.bn_bwd_sums.argtypes = [p, p, i32, i32, i64, i64, i32, p, p, p, i32, p, p, f32, p]
-    lib.bn_bwd_apply.restype = i32
-    lib.bn_bwd_apply.argtypes = [p, p, p, i32, i32, i64, i64, i32, p, p, p, i32, p, p]
-    _lib = lib
-    return lib, seconds
+def load_library():
+    return _build.load(LIBRARY, SIGNATURES)
 
 
 def _check_inputs(what: str, x: torch.Tensor, *params: torch.Tensor, g=None, stat=None):
@@ -135,11 +125,6 @@ def _geometry(x: torch.Tensor):
     return x.numel() // c, c, int(x.dtype == torch.bfloat16), _sm_count(x.device)
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def apply_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
                inv: torch.Tensor, relu: bool) -> torch.Tensor:
     """K5-fwd: ``(x − mean)·inv·w + b`` in x's dtype and shape, the ReLU
@@ -149,10 +134,9 @@ def apply_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: 
     vec = _vec(x, y)
     rows, c, bf16, sms = _geometry(x)
     lib, _ = load_library()
-    with _guard.on_device(x.device) as stream:
-        err = lib.bn_fwd(x.data_ptr(), y.data_ptr(), bf16, vec, rows, c, sms, mean.data_ptr(),
-                         inv.data_ptr(), weight.data_ptr(), bias.data_ptr(), int(relu), stream)
-    _raise_on(err, "bn_fwd")
+    _guard.launch(lib, "bn_fwd", x.device, x.data_ptr(), y.data_ptr(), bf16, vec, rows, c, sms,
+                  mean.data_ptr(), inv.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  int(relu))
     return y
 
 
@@ -167,11 +151,9 @@ def grad_sums_cuda(g: torch.Tensor, x: torch.Tensor, stat: torch.Tensor, weight:
     blocks = lib.bn_sum_blocks(rows, c, vec, sms) if rows else 0
     partials = torch.empty(blocks * 2 * c, dtype=torch.float32, device=x.device)
     sums = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
-    with _guard.on_device(x.device) as stream:
-        err = lib.bn_bwd_sums(g.data_ptr(), x.data_ptr(), bf16, vec, rows, c, sms,
-                              stat.data_ptr(), weight.data_ptr(), bias.data_ptr(), int(relu),
-                              partials.data_ptr(), sums.data_ptr(), float(rows), stream)
-    _raise_on(err, "bn_bwd_sums")
+    _guard.launch(lib, "bn_bwd_sums", x.device, g.data_ptr(), x.data_ptr(), bf16, vec, rows, c,
+                  sms, stat.data_ptr(), weight.data_ptr(), bias.data_ptr(), int(relu),
+                  partials.data_ptr(), sums.data_ptr(), float(rows))
     return sums
 
 
@@ -187,12 +169,9 @@ def grad_apply_cuda(g: torch.Tensor, x: torch.Tensor, stat: torch.Tensor, weight
     vec = _vec(x, g, gx)
     rows, c, bf16, sms = _geometry(x)
     lib, _ = load_library()
-    with _guard.on_device(x.device) as stream:
-        err = lib.bn_bwd_apply(g.data_ptr(), x.data_ptr(), gx.data_ptr(), bf16, vec,
-                               rows, c, sms, stat.data_ptr(), weight.data_ptr(),
-                               bias.data_ptr(), int(relu),
-                               None if sums is None else sums.data_ptr(), stream)
-    _raise_on(err, "bn_bwd_apply")
+    _guard.launch(lib, "bn_bwd_apply", x.device, g.data_ptr(), x.data_ptr(), gx.data_ptr(), bf16,
+                  vec, rows, c, sms, stat.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  int(relu), None if sums is None else sums.data_ptr())
     return gx
 
 
@@ -214,11 +193,8 @@ def batchnorm_cuda_bwd(g: torch.Tensor, x: torch.Tensor, stat: torch.Tensor,
             total = sums.clone()
             dist.all_reduce(total, group=group)
         gx = grad_apply_cuda(g, x, stat, weight, bias, relu, total if train else None)
-    _guard.count_launch(batchnorm_cuda_bwd)
+    _guard.count("batchnorm_bwd")  # a wrapper call, not its three launches
     return gx, sums[c:2 * c], sums[:c]
-
-
-batchnorm_cuda_bwd.launches = 0  # wrapper calls since the last reset, not captures
 
 
 class _BatchNorm(torch.autograd.Function):
@@ -228,7 +204,7 @@ class _BatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, mean, var, train, relu, eps, group):
         stat = torch.stack([mean, var, torch.rsqrt(var + eps)])  # inv: the chain's own op
         y = apply_cuda(x, weight, bias, stat[0], stat[2], relu)
-        _guard.count_launch(batchnorm_cuda)
+        _guard.count("batchnorm_fwd")
         ctx.save_for_backward(x, stat.view(-1), weight, bias)
         ctx.conf = (train, relu, group)
         return y
@@ -254,6 +230,3 @@ def batchnorm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``relu``. Its autograd backward launches K5-bwd."""
     _check_inputs("batchnorm_cuda", x, weight, bias, mean, var)
     return _BatchNorm.apply(x, weight, bias, mean, var, train, relu, eps, group)
-
-
-batchnorm_cuda.launches = 0  # wrapper calls since the last reset, not captures

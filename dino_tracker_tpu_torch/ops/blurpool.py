@@ -26,13 +26,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _guard
+from . import _build, _guard
 
 # binomial [1,3,3,1]/8 per axis — exact binary floats
 TAPS = (1.0 / 8.0, 3.0 / 8.0, 3.0 / 8.0, 1.0 / 8.0)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
+LIBRARY = "blurpool"  # csrc/blurpool.cu
+# x, y, N, H, W, C, dtype code, stream
+_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p)
+SIGNATURES = {"blurpool_down_nhwc": (ctypes.c_int, _ARGS),
+              "blurpool_up_nhwc": (ctypes.c_int, _ARGS)}
 
 
 def blurpool_reference(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -45,22 +49,8 @@ def blurpool_reference(x_nhwc: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous().to(x_nhwc.dtype)
 
 
-def load_library() -> tuple[ctypes.CDLL, float]:
-    """Build (at first use) and bind the kernel library; returns it with the
-    seconds spent compiling (0.0 when it was already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return _lib, 0.0
-    from . import _build
-    path, seconds = _build.build("blurpool")
-    lib = ctypes.CDLL(path)
-    for fn in (lib.blurpool_down_nhwc, lib.blurpool_up_nhwc):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_void_p]
-    _lib = lib
-    return lib, seconds
+def load_library():
+    return _build.load(LIBRARY, SIGNATURES)
 
 
 def _check(t: torch.Tensor, what: str):
@@ -86,12 +76,8 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     y = torch.empty((n, (h + 1) // 2, (w + 1) // 2, c), dtype=x.dtype,
                     device=x.device)
-    with _guard.on_device(x.device) as stream:
-        err = lib.blurpool_down_nhwc(x.data_ptr(), y.data_ptr(), n, h, w, c,
-                                     _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"blurpool_down_nhwc launch failed: CUDA error {err}")
-    _guard.count_launch(blurpool_cuda)
+    _guard.launch(lib, "blurpool_down_nhwc", x.device, x.data_ptr(), y.data_ptr(), n, h, w,
+                  c, _DTYPE_CODE[x.dtype], kernel="blurpool_down_nhwc")
     return y
 
 
@@ -112,16 +98,9 @@ def blurpool_cuda_bwd(g_nhwc: torch.Tensor, h: int, w: int) -> torch.Tensor:
                          f"({h}×{w}×{c})")
     lib, _ = load_library()
     gx = torch.empty((n, h, w, c), dtype=g_nhwc.dtype, device=g_nhwc.device)
-    with _guard.on_device(g_nhwc.device) as stream:
-        err = lib.blurpool_up_nhwc(g_nhwc.data_ptr(), gx.data_ptr(), n, h, w, c,
-                                   _DTYPE_CODE[g_nhwc.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"blurpool_up_nhwc launch failed: CUDA error {err}")
-    _guard.count_launch(blurpool_cuda_bwd)
+    _guard.launch(lib, "blurpool_up_nhwc", g_nhwc.device, g_nhwc.data_ptr(), gx.data_ptr(),
+                  n, h, w, c, _DTYPE_CODE[g_nhwc.dtype], kernel="blurpool_up_nhwc")
     return gx
-
-
-blurpool_cuda_bwd.launches = 0  # kernel launches since the last reset, not captures
 
 
 class _BlurPoolDown(torch.autograd.Function):
@@ -142,9 +121,6 @@ def blurpool_cuda(x_nhwc: torch.Tensor) -> torch.Tensor:
     """Launch K1-fwd on a contiguous CUDA NHWC tensor (f32 or bf16); its
     autograd backward launches K1-bwd."""
     return _BlurPoolDown.apply(x_nhwc)
-
-
-blurpool_cuda.launches = 0  # kernel launches since the last reset, not captures
 
 
 def blurpool(x_nhwc: torch.Tensor) -> torch.Tensor:

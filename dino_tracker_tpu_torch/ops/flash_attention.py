@@ -15,7 +15,7 @@ maps cannot express: the wrapper never copies). The bf16 output is a
 kernel's SIMT path over contiguous tensors.
 
 The library is built with nvcc at first use (``ops/_build.py``), never at
-import. ``flash_attention_cuda.launches`` counts the launches.
+import.
 """
 
 from __future__ import annotations
@@ -25,37 +25,23 @@ from typing import NamedTuple
 
 import torch
 
-from . import _guard
+from . import _build, _guard
 
 HEAD_DIMS = (64,)  # the head dims the kernel takes (every DINOv2 preset: 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_STRIDE_BYTES = 1 << 40  # a tensor map's stride limit
+LIBRARY = "flash_attention"  # csrc/flash_attention.cu
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# bf16: q, k, v, out, B, H, S, d, the inputs' 9 and the output's 3 byte
+# strides, scale, stream; f32: q, k, v, out, B·H, S, d, scale, stream
+SIGNATURES = {
+    "flash_attention_fwd_bf16": (ctypes.c_int, (_P,) * 4 + (_I64,) * 4 + (
+        ctypes.POINTER(_I64), ctypes.POINTER(_I64), ctypes.c_float, _P)),
+    "flash_attention_fwd_f32": (ctypes.c_int, (_P,) * 4 + (_I64,) * 3 + (ctypes.c_float, _P))}
 
-_lib = None
 
-
-def load_library() -> tuple[ctypes.CDLL, float]:
-    """Build (at first use) and bind the kernel library; returns it with the
-    seconds spent compiling (0.0 when it was already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return _lib, 0.0
-    from . import _build
-    path, seconds = _build.build("flash_attention")
-    lib = ctypes.CDLL(path)
-    lib.flash_attention_fwd_bf16.restype = ctypes.c_int
-    lib.flash_attention_fwd_bf16.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_float, ctypes.c_void_p]
-    lib.flash_attention_fwd_f32.restype = ctypes.c_int
-    lib.flash_attention_fwd_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_void_p]
-    _lib = lib
-    return lib, seconds
+def load_library():
+    return _build.load(LIBRARY, SIGNATURES)
 
 
 class TmaLayout(NamedTuple):
@@ -136,13 +122,9 @@ def _launch_bf16(q, k, v, sm_scale):
     in_strides = (ctypes.c_int64 * 9)(*(x for m in maps for x in m.byte_strides))
     o_strides = (ctypes.c_int64 * 3)(out.stride(0), out.stride(1), out.stride(2))
     lib, _ = load_library()
-    with _guard.on_device(q.device) as stream:
-        err = lib.flash_attention_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                           out.data_ptr(), b, h, s, d, in_strides,
-                                           o_strides, float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: CUDA error {err}")
-    flash_attention_cuda.launches += 1
+    _guard.launch(lib, "flash_attention_fwd_bf16", q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, h, s, d, in_strides, o_strides,
+                  float(sm_scale), kernel="flash_attention")
     return out.permute(0, 2, 1, 3)
 
 
@@ -157,14 +139,7 @@ def _launch_f32(q, k, v, sm_scale):
     lib, _ = load_library()
     out = torch.empty_like(q)
     bh = q.numel() // (q.shape[-2] * q.shape[-1])
-    with _guard.on_device(q.device) as stream:
-        err = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          out.data_ptr(), bh, q.shape[-2], q.shape[-1],
-                                          float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd_f32 launch failed: CUDA error {err}")
-    flash_attention_cuda.launches += 1
+    _guard.launch(lib, "flash_attention_fwd_f32", q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), bh, q.shape[-2], q.shape[-1],
+                  float(sm_scale), kernel="flash_attention")
     return out
-
-
-flash_attention_cuda.launches = 0  # kernel launches since the last reset

@@ -30,14 +30,19 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _guard
+from . import _build, _guard
 
 HIDDEN, TAPS = 16, 9
 N_PARAMS = 2 * HIDDEN * TAPS + HIDDEN + 1  # g_w1, g_b1, g_w2, g_b2, as the kernel writes them
 W1_SHAPE, B1_SHAPE = (HIDDEN, 1, 3, 3), (HIDDEN,)
 W2_SHAPE, B2_SHAPE = (1, HIDDEN, 3, 3), (1,)
-
-_lib = None
+LIBRARY = "tracker_head"  # csrc/tracker_head.cu
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# fwd: x, w1, b1, w2, b2, y, blocks, B, H', W', stream; bwd: x, gy, w1, b1,
+# w2, gx, partials, params, blocks, B, H', W', stream
+SIGNATURES = {"head_conv_fwd": (ctypes.c_int, (_P,) * 6 + (_I64,) * 4 + (_P,)),
+              "head_conv_bwd": (ctypes.c_int, (_P,) * 8 + (_I64,) * 4 + (_P,)),
+              "head_conv_max_blocks": (ctypes.c_int, (ctypes.POINTER(ctypes.c_int),) * 2)}
 _max_blocks = {}  # device index -> (K4-fwd's, K4-bwd's) resident blocks
 
 
@@ -50,24 +55,8 @@ def head_conv_reference(x_bhw: torch.Tensor, w1n: torch.Tensor, b1: torch.Tensor
     return F.conv2d(h, w2n, b2, padding=1)[:, 0]
 
 
-def load_library() -> tuple[ctypes.CDLL, float]:
-    """Build (at first use) and bind the kernel library; returns it with the
-    seconds spent compiling (0.0 when it was already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return _lib, 0.0
-    from . import _build
-    path, seconds = _build.build("tracker_head")
-    lib = ctypes.CDLL(path)
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.head_conv_fwd.restype = ctypes.c_int
-    lib.head_conv_fwd.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, p]
-    lib.head_conv_bwd.restype = ctypes.c_int
-    lib.head_conv_bwd.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
-    lib.head_conv_max_blocks.restype = ctypes.c_int
-    lib.head_conv_max_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    _lib = lib
-    return lib, seconds
+def load_library():
+    return _build.load(LIBRARY, SIGNATURES)
 
 
 def _check_inputs(what: str, x: torch.Tensor, w1n, b1, w2n, b2=None, gy=None):
@@ -102,13 +91,9 @@ def _launch(x, w1n, b1, w2n, b2) -> torch.Tensor:
     if x.shape[0] == 0:  # a mesh rank's share can be empty
         return y
     lib, _ = load_library()
-    with _guard.on_device(x.device) as stream:
-        err = lib.head_conv_fwd(x.data_ptr(), w1n.data_ptr(), b1.data_ptr(), w2n.data_ptr(),
-                                b2.data_ptr(), y.data_ptr(), _blocks(lib, x.device)[0],
-                                *x.shape, stream)
-    if err != 0:
-        raise RuntimeError(f"head_conv_fwd launch failed: CUDA error {err}")
-    _guard.count_launch(head_conv_cuda)
+    _guard.launch(lib, "head_conv_fwd", x.device, x.data_ptr(), w1n.data_ptr(), b1.data_ptr(),
+                  w2n.data_ptr(), b2.data_ptr(), y.data_ptr(), _blocks(lib, x.device)[0],
+                  *x.shape, kernel="head_conv_fwd")
     return y
 
 
@@ -141,19 +126,13 @@ def head_conv_cuda_bwd(x: torch.Tensor, gy: torch.Tensor, w1n: torch.Tensor,
         lib, _ = load_library()
         blocks = _blocks(lib, x.device)[1]
         partials = torch.empty(blocks * N_PARAMS, dtype=torch.float32, device=x.device)
-        with _guard.on_device(x.device) as stream:
-            err = lib.head_conv_bwd(x.data_ptr(), gy.data_ptr(), w1n.data_ptr(), b1.data_ptr(),
-                                    w2n.data_ptr(), gx.data_ptr(), partials.data_ptr(),
-                                    params.data_ptr(), blocks, *x.shape, stream)
-        if err != 0:
-            raise RuntimeError(f"head_conv_bwd launch failed: CUDA error {err}")
-        _guard.count_launch(head_conv_cuda_bwd)
+        _guard.launch(lib, "head_conv_bwd", x.device, x.data_ptr(), gy.data_ptr(),
+                      w1n.data_ptr(), b1.data_ptr(), w2n.data_ptr(), gx.data_ptr(),
+                      partials.data_ptr(), params.data_ptr(), blocks, *x.shape,
+                      kernel="head_conv_bwd")
     w1_end, b1_end = HIDDEN * TAPS, HIDDEN * (TAPS + 1)
     return (gx, params[:w1_end].view(W1_SHAPE), params[w1_end:b1_end],
             params[b1_end:-1].view(W2_SHAPE), params[-1:])
-
-
-head_conv_cuda_bwd.launches = 0  # kernel launches since the last reset, not captures
 
 
 class _HeadConv(torch.autograd.Function):
@@ -177,6 +156,3 @@ def head_conv_cuda(x_bhw: torch.Tensor, w1n: torch.Tensor, b1: torch.Tensor,
     weights (16×1×3×3, 1×16×3×3) and biases (16, 1); returns B×H'×W' logits.
     Its autograd backward launches K4-bwd."""
     return _HeadConv.apply(x_bhw, w1n, b1, w2n, b2)
-
-
-head_conv_cuda.launches = 0  # kernel launches since the last reset, not captures

@@ -17,7 +17,7 @@ that.
   grid-sample tap path for degenerate levels). It is the CPU path and K3's
   oracle.
 - ``corr_lookup_cuda``: launches K3 on CUDA tensors and raises on anything
-  else; ``corr_lookup_cuda.launches`` counts the launches.
+  else.
 
 The library is built with nvcc at first use (``ops/_build.py``), never at
 import. ``models/raft.py corr_lookup`` dispatches on the device.
@@ -31,12 +31,16 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from . import _guard
+from . import _build, _guard
 
 CORR_LEVELS = 4
 CORR_RADIUS = 4
-
-_lib = None
+LIBRARY = "corr_lookup"  # csrc/corr_lookup.cu
+# the levels, their heights and widths, coords, out, B, h, w, stream
+SIGNATURES = {"corr_lookup_fwd": (ctypes.c_int, (
+    (ctypes.c_void_p,) * CORR_LEVELS + (ctypes.c_int,) * (2 * CORR_LEVELS)
+    + (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p)))}
 
 
 def window_gather_reference(vol: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
@@ -104,22 +108,8 @@ def corr_lookup_reference(pyramid: Sequence[torch.Tensor],
     return torch.cat(out, dim=1).reshape(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
 
 
-def load_library() -> tuple[ctypes.CDLL, float]:
-    """Build (at first use) and bind the kernel library; returns it with the
-    seconds spent compiling (0.0 when it was already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return _lib, 0.0
-    from . import _build
-    path, seconds = _build.build("corr_lookup")
-    lib = ctypes.CDLL(path)
-    lib.corr_lookup_fwd.restype = ctypes.c_int
-    lib.corr_lookup_fwd.argtypes = (
-        [ctypes.c_void_p] * CORR_LEVELS + [ctypes.c_int] * (2 * CORR_LEVELS)
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-           ctypes.c_int, ctypes.c_void_p])
-    _lib = lib
-    return lib, seconds
+def load_library():
+    return _build.load(LIBRARY, SIGNATURES)
 
 
 def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor):
@@ -161,13 +151,6 @@ def corr_lookup_cuda(pyramid: Sequence[torch.Tensor],
     out = torch.empty((b, CORR_LEVELS * (2 * CORR_RADIUS + 1) ** 2, h, w),
                       dtype=torch.float32, device=coords.device)
     sizes = [s for v in pyramid for s in v.shape[1:]]
-    with _guard.on_device(coords.device) as stream:
-        err = lib.corr_lookup_fwd(*[v.data_ptr() for v in pyramid], *sizes,
-                                  coords.data_ptr(), out.data_ptr(), b, h, w, stream)
-    if err != 0:
-        raise RuntimeError(f"corr_lookup_fwd launch failed: CUDA error {err}")
-    corr_lookup_cuda.launches += 1
+    _guard.launch(lib, "corr_lookup_fwd", coords.device, *[v.data_ptr() for v in pyramid],
+                  *sizes, coords.data_ptr(), out.data_ptr(), b, h, w, kernel="corr_lookup")
     return out
-
-
-corr_lookup_cuda.launches = 0  # kernel launches since the last reset

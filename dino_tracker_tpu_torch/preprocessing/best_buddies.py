@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.nn import exact_f32_matmuls
+from ..models.nn import exact_f32
 from ..ops.nms import nms_top2_peaks, topk_mask
 from ..parallel import mesh as mesh_lib
 from ..structures import BBData
@@ -91,7 +91,7 @@ def _mutual_nn_core(sn: torch.Tensor, tn: torch.Tensor, cap: int,
     cos, valid), each P×cap, and the true pre-cap count P: the strongest-
     cosine buddies, compacted in token order; an empty slot holds token 0,
     its argmax and cos 0 (JAX ``compact_mask``)."""
-    with exact_f32_matmuls(sn):
+    with exact_f32(sn):
         aff = torch.bmm(sn, tn.transpose(1, 2))  # P×n×n
     n = aff.shape[1]
     src_max = aff.argmax(dim=2)
@@ -362,7 +362,7 @@ def compute_bb_ambiguity(bb: BBData, features_tchw: torch.Tensor, h: int, w: int
         for u, a, b in (slabs[i] for i in mine):
             s, _, slot = rows[a:b].unbind(1)
             sfeat = fn[s, tok[s, u, slot]]  # slab×C
-            with exact_f32_matmuls(sfeat):
+            with exact_f32(sfeat):
                 sim = sfeat @ fn[u].T
             r_slabs.append((nms_top2_peaks(sim, grid, topk=topk, box_size=box_size,
                                            iou_thresh=iou_thresh)[1],))

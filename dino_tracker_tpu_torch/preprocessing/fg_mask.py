@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from ..models.nn import exact_f32_matmuls
+from ..models.nn import exact_f32
 
 
 def pca_project(features_nc: torch.Tensor, q: int = 3):
@@ -25,7 +25,7 @@ def pca_project(features_nc: torch.Tensor, q: int = 3):
     directions of the centered ones, V c×q), as ``torch.pca_lowrank`` +
     ``features @ V`` (reference create_fg_mask.py:29-31)."""
     centered = features_nc - features_nc.mean(dim=0, keepdim=True)
-    with exact_f32_matmuls(features_nc):
+    with exact_f32(features_nc):
         cov = centered.T @ centered
         _, evecs = torch.linalg.eigh(cov)  # ascending eigenvalues
         v = evecs.flip(-1)[:, :q]

@@ -21,7 +21,7 @@ Traps:
   the warm-up step counts as a step of the run.
 * ``backward`` inside the capture allocates the gradients in the graph's
   memory pool (the step sets them to None first); every replay rewrites them.
-* A kernel wrapper counts the launches it makes (``ops/blurpool.py``). A
+* A kernel's launches are counted as they are made (``ops/_guard.py``). A
   call inside the capture records a launch without making it and counts
   nothing, and a replay runs no Python: the kernels a replay runs are seen
   only in a trace of the card (``chip_smoke.py`` phase 5 counts them).
@@ -108,7 +108,7 @@ class StepGraph:
     on every rank of ``mesh``. A capture that fails raises, on every rank.
 
     ``captures`` and ``replays`` count, over the process, the captures made
-    and the steps replayed (as a kernel wrapper counts its launches)."""
+    and the steps replayed (as ``ops/_guard.py`` counts kernel launches)."""
 
     captures = replays = 0
 

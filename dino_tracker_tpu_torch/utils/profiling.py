@@ -39,6 +39,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..ops import _guard
+
 logger = logging.getLogger(__name__)
 
 _STAGE_TIMES: Dict[str, float] = defaultdict(float)
@@ -311,17 +313,9 @@ def add_slowest_rank(mesh, prefix: str):
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Each hand-written kernel's launch count in this process (the
-    wrappers' counters, which callers reset)."""
-    from ..ops import batchnorm, blurpool, flash_attention, head_conv, window_gather
-    return {"blurpool_down_nhwc": blurpool.blurpool_cuda.launches,
-            "blurpool_up_nhwc": blurpool.blurpool_cuda_bwd.launches,
-            "flash_attention": flash_attention.flash_attention_cuda.launches,
-            "corr_lookup": window_gather.corr_lookup_cuda.launches,
-            "head_conv_fwd": head_conv.head_conv_cuda.launches,
-            "head_conv_bwd": head_conv.head_conv_cuda_bwd.launches,
-            "batchnorm_fwd": batchnorm.batchnorm_cuda.launches,
-            "batchnorm_bwd": batchnorm.batchnorm_cuda_bwd.launches}
+    """Each hand-written kernel's launch count in this process
+    (``ops/_guard.py``'s counts, which callers reset)."""
+    return _guard.launch_counts()
 
 
 def graph_counts() -> Dict[str, int]:

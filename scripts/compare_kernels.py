@@ -37,7 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
-from dino_tracker_tpu_torch.ops import _build  # noqa: E402
+from dino_tracker_tpu_torch.ops import _build, _guard  # noqa: E402
 from dino_tracker_tpu_torch.ops import blurpool as bp  # noqa: E402
 from dino_tracker_tpu_torch.ops import window_gather as wg  # noqa: E402
 
@@ -45,23 +45,20 @@ OUT = os.path.join(REPO, "build", "compare")
 ROUNDS = 3
 
 
-def build(csrc, name, tag):
-    """nvcc csrc/<name>.cu; returns (CDLL, ptxas rows)."""
+def build(csrc, mod, tag):
+    """nvcc csrc/<mod.LIBRARY>.cu; returns (the library bound to the module's
+    signatures, ptxas rows)."""
+    name = mod.LIBRARY
     lib = os.path.join(OUT, f"lib{name}_{tag}.so")
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
                            os.path.join(csrc, f"{name}.cu")], capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"nvcc failed for {tag} {name}.cu:\n{proc.stderr}")
-    return ctypes.CDLL(lib), _build.parse_ptxas(proc.stderr)
+    return _build.bind(ctypes.CDLL(lib), mod.SIGNATURES), _build.parse_ptxas(proc.stderr)
 
 
-def bind(lib, entry, argtypes):
-    fn = getattr(lib, entry)
-    fn.restype, fn.argtypes = ctypes.c_int, argtypes
-
-    def call(*args):
-        cs.check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0,
-                 f"{entry}: CUDA error")
-    return call
+def entry_call(lib, entry, device):
+    """``lib.<entry>`` launched by the port's own launch path (uncounted)."""
+    return lambda *args: _guard.launch(lib, entry, device, *args)
 
 
 def up_call(fn):
@@ -124,21 +121,18 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     os.makedirs(OUT, exist_ok=True)
-    jobs = [(csrc, name, tag) for tag, csrc in (("repo", _build.CSRC), ("parent", args.parent))
-            for name in ("blurpool", "corr_lookup")]
+    jobs = [(csrc, mod, tag) for tag, csrc in (("repo", _build.CSRC), ("parent", args.parent))
+            for mod in (bp, wg)]
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = dict(zip([(j[1], j[2]) for j in jobs], pool.map(lambda j: build(*j), jobs)))
+        built = dict(zip([(j[1].LIBRARY, j[2]) for j in jobs],
+                         pool.map(lambda j: build(*j), jobs)))
     for (name, tag), (_, rows) in built.items():
         for kernel, usage in rows:
             if "up_kernel" in kernel or "corr_lookup" in kernel:
                 print(f"ptxas {tag} {name}.cu {kernel}: {usage}", flush=True)
-    up_types = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    look_types = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p])
     tags = ("repo", "parent")
-    up = {t: up_call(bind(built["blurpool", t][0], "blurpool_up_nhwc", up_types)) for t in tags}
-    look = {t: lookup_call(bind(built["corr_lookup", t][0], "corr_lookup_fwd", look_types))
+    up = {t: up_call(entry_call(built[bp.LIBRARY, t][0], "blurpool_up_nhwc", dev)) for t in tags}
+    look = {t: lookup_call(entry_call(built[wg.LIBRARY, t][0], "corr_lookup_fwd", dev))
             for t in tags}
 
     result = {}

@@ -28,7 +28,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cs.build_kernels([("blurpool.cu", bp)])
+    cs.build_kernels([bp])
     meta, rec = cs.load_golden("train")
     inp, wd = cs.golden_inputs("train", meta)
     fw = cs.full_width_inputs()

@@ -46,6 +46,7 @@ import torch
 
 from dino_tracker_tpu_torch.models import delta_dino as dd
 from dino_tracker_tpu_torch.models import nn as pnn
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import batchnorm as bn_ops
 from dino_tracker_tpu_torch.parallel import mesh as mesh_lib
 from test_torch_threads import SPAWN_TIMEOUT, one_thread  # noqa: F401
@@ -373,14 +374,19 @@ def test_cpu_tensors_take_the_plain_chain(monkeypatch, train, relu):
     assert all(torch.equal(a, b) for a, b in zip(got[4], want[4]))
 
 
+def launches():
+    """K5-fwd's and K5-bwd's counts (wrapper calls)."""
+    counts = _guard.launch_counts()
+    return counts["batchnorm_fwd"], counts["batchnorm_bwd"]
+
+
 def test_delta_dino_on_the_cpu_launches_no_kernel(monkeypatch):
     """DeltaDINO's train and eval forward on the CPU take the plain chain at
     every layer (K5's wrapper would raise)."""
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor reached K5")
 
-    kernel = bn_ops.batchnorm_cuda
-    before = (kernel.launches, bn_ops.batchnorm_cuda_bwd.launches)
+    before = launches()
     monkeypatch.setattr(bn_ops, "batchnorm_cuda", refuse)
     model = dd.DeltaDINO((3, 8, 8, 8, 16))
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -390,7 +396,7 @@ def test_delta_dino_on_the_cpu_launches_no_kernel(monkeypatch):
     model.eval()
     with torch.no_grad():
         model(frames, (8, 12))
-    assert (kernel.launches, bn_ops.batchnorm_cuda_bwd.launches) == before
+    assert launches() == before
 
 
 def _wrapper_args(x):
@@ -403,13 +409,13 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     """The wrapper never falls back: CPU tensors are refused, and a refused
     call is not counted."""
     x = torch.zeros(2, 3, 4, 8, dtype=torch.bfloat16)
-    before = (bn_ops.batchnorm_cuda.launches, bn_ops.batchnorm_cuda_bwd.launches)
+    before = launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         bn_ops.batchnorm_cuda(*_wrapper_args(x), True, True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bn_ops.batchnorm_cuda_bwd(x, x, torch.zeros(24), torch.ones(8), torch.zeros(8),
                                   True, True)
-    assert (bn_ops.batchnorm_cuda.launches, bn_ops.batchnorm_cuda_bwd.launches) == before
+    assert launches() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
@@ -445,10 +451,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (kernel K5 has no CPU mode)")
     yield torch.device("cuda")
-
-
-def launches():
-    return bn_ops.batchnorm_cuda.launches, bn_ops.batchnorm_cuda_bwd.launches
 
 
 def check_against_chain(x, g, weight, bias, relu, running=None):

@@ -30,6 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import blurpool as bp
 from test_torch_threads import one_thread  # noqa: F401
 
@@ -149,17 +150,23 @@ def test_reference_vjp_matches_jax_bf16(jax_ref, shape):
                                    atol=bf16_ulp(ours))
 
 
+def launches():
+    """K1-fwd's and K1-bwd's launch counts."""
+    counts = _guard.launch_counts()
+    return counts["blurpool_down_nhwc"], counts["blurpool_up_nhwc"]
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     """The kernel wrapper never falls back: a CPU tensor is refused, and a
     refused call is not counted as a launch."""
-    before = bp.blurpool_cuda.launches
+    before = launches()[0]
     with pytest.raises(ValueError, match="CUDA tensor"):
         bp.blurpool_cuda(torch.zeros(1, 4, 4, 2))
-    assert bp.blurpool_cuda.launches == before
-    before = bp.blurpool_cuda_bwd.launches
+    assert launches()[0] == before
+    before = launches()[1]
     with pytest.raises(ValueError, match="CUDA tensor"):
         bp.blurpool_cuda_bwd(torch.zeros(1, 2, 2, 2), 4, 4)
-    assert bp.blurpool_cuda_bwd.launches == before
+    assert launches()[1] == before
 
 
 @pytest.mark.cuda
@@ -168,10 +175,10 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 def test_kernel_matches_reference(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    before = bp.blurpool_cuda.launches
+    before = launches()[0]
     y = bp.blurpool_cuda(x)
     torch.cuda.synchronize()
-    assert bp.blurpool_cuda.launches == before + 1
+    assert launches()[0] == before + 1
     assert y.dtype == dtype and y.shape == (shape[0], (shape[1] + 1) // 2,
                                             (shape[2] + 1) // 2, shape[3])
     ref = bp.blurpool_reference(x).float().cpu().numpy()
@@ -199,10 +206,10 @@ def test_kernel_backward_matches_reference(cuda, shape, dtype):
     x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
     g = torch.randn(out_shape(shape), generator=gen, device=cuda).to(dtype)
     xk = x.clone().requires_grad_(True)
-    before = (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches)
+    before = launches()
     gx = torch.autograd.grad(bp.blurpool(xk), xk, g)[0]
     torch.cuda.synchronize()
-    assert (bp.blurpool_cuda.launches, bp.blurpool_cuda_bwd.launches) == (
+    assert launches() == (
         before[0] + 1, before[1] + 1)
     assert gx.dtype == dtype and gx.shape == shape
     ref = reference_vjp(x, g).float()
@@ -297,10 +304,10 @@ EDGE_CASES = [((2, 3, 20, 8), torch.bfloat16), ((2, 20, 3, 8), torch.bfloat16),
 def test_kernel_backward_quad_edges(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
     g = torch.randn(out_shape(shape), generator=gen, device=cuda).to(dtype)
-    before = bp.blurpool_cuda_bwd.launches
+    before = launches()[1]
     gx = bp.blurpool_cuda_bwd(g, shape[1], shape[2])
     torch.cuda.synchronize()
-    assert bp.blurpool_cuda_bwd.launches == before + 1
+    assert launches()[1] == before + 1
     assert gx.dtype == dtype and gx.shape == shape
     ref = reference_vjp(torch.zeros(shape, device=cuda, dtype=dtype), g).float()
     atol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())

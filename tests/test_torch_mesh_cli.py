@@ -29,6 +29,7 @@ import torch
 
 from dino_tracker_tpu_torch.cli import inference_benchmark
 from dino_tracker_tpu_torch.cli import train as train_cli
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.training import checkpoint as ckpt
 from test_torch_threads import one_thread  # noqa: F401
 
@@ -102,10 +103,7 @@ def test_each_rank_reports_its_own_timers(trained):
             own = stages[f"train/steps_gates_{gates}"]["total_s"]
             slowest = stages[f"train/steps_gates_{gates}/slowest_rank"]["total_s"]
             assert 0 < own <= slowest
-        assert set(report["launches"]) == {"blurpool_down_nhwc", "blurpool_up_nhwc",
-                                           "flash_attention", "corr_lookup",
-                                           "head_conv_fwd", "head_conv_bwd",
-                                           "batchnorm_fwd", "batchnorm_bwd"}
+        assert list(report["launches"]) == list(_guard.KERNELS)
     assert "train/checkpoint" in two[0]["stages"]      # rank 0 writes
     assert "train/checkpoint" not in two[1]["stages"]
 

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from dino_tracker_tpu_torch.models import raft as praft
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import window_gather as pwg
 from dino_tracker_tpu_torch.utils import sampling as psampling
 from test_torch_threads import one_thread  # noqa: F401
@@ -344,13 +345,13 @@ def test_corr_lookup_dispatch():
     f1, f2 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
               for _ in range(2))
     pyramid = praft.build_corr_pyramid(f1, f2)
-    before = pwg.corr_lookup_cuda.launches
+    before = launches()
     out = praft.corr_lookup(pyramid, torch.from_numpy(coords))
     torch.testing.assert_close(out, pwg.corr_lookup_reference(pyramid, torch.from_numpy(coords)),
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         pwg.corr_lookup_cuda(pyramid, torch.from_numpy(coords))
-    assert pwg.corr_lookup_cuda.launches == before
+    assert launches() == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         praft.corr_lookup(pyramid, torch.from_numpy(coords).to("meta"))
 
@@ -358,6 +359,11 @@ def test_corr_lookup_dispatch():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+def launches():
+    """K3's launch count."""
+    return _guard.launch_counts()["corr_lookup"]
+
 
 def card_pyramid(dev, b, h, w, c=256, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -378,10 +384,10 @@ def test_kernel_matches_reference(cuda, b, h, w, spread):
     pyramid, g = card_pyramid(cuda, b, h, w, seed=h * w)
     coords = praft.coords_grid(b, h, w, cuda)
     coords = (coords + torch.randn(coords.shape, generator=g, device=cuda) * spread).contiguous()
-    before = pwg.corr_lookup_cuda.launches
+    before = launches()
     out = praft.corr_lookup(pyramid, coords)
     torch.cuda.synchronize()
-    assert pwg.corr_lookup_cuda.launches == before + 1
+    assert launches() == before + 1
     ref = pwg.corr_lookup_reference(pyramid, coords)
     assert out.shape == ref.shape == (b, 324, h, w) and out.dtype == torch.float32
     err = (out - ref).abs().max().item()

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from dino_tracker_tpu_torch.models import tracker_head as th
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import head_conv as hc
 from test_torch_threads import one_thread  # noqa: F401
 
@@ -217,17 +218,23 @@ def test_mirror_of_the_kernels_matches_autograd(shape):
         np.testing.assert_allclose(g, r, rtol=0, atol=1e-12 * max(1.0, np.abs(r).max()))
 
 
+def launches():
+    """K4-fwd's and K4-bwd's launch counts."""
+    counts = _guard.launch_counts()
+    return counts["head_conv_fwd"], counts["head_conv_bwd"]
+
+
 def test_cuda_wrappers_reject_cpu_tensors():
     """The wrappers never fall back: CPU tensors are refused, and a refused
     call is not counted."""
     x, gy = maps_and_cotangent((2, 5, 6), 0)
     ws = head_weights(0)
-    before = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    before = launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         hc.head_conv_cuda(x, *ws)
     with pytest.raises(ValueError, match="CUDA tensor"):
         hc.head_conv_cuda_bwd(x, gy, *ws[:3])
-    assert (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches) == before
+    assert launches() == before
 
 
 @pytest.mark.parametrize("which", ["maps", "w1", "b1", "w2", "b2"])
@@ -275,12 +282,11 @@ def test_tracker_head_on_cpu_takes_the_plain_chain(monkeypatch):
     cost, _ = maps_and_cotangent((3, 9, 14), 1)
     cost = cost[:, None]
     want = head(cost, (70, 105))
-    kernel = hc.head_conv_cuda
-    before = (kernel.launches, hc.head_conv_cuda_bwd.launches)
+    before = launches()
     monkeypatch.setattr(hc, "head_conv_cuda", refuse)
     got = head(cost, (70, 105))
     assert torch.equal(got, want)
-    assert (kernel.launches, hc.head_conv_cuda_bwd.launches) == before
+    assert launches() == before
     # the chain: the normalised convs in NHWC, which the plain version matches
     x = torch.relu(th.normalized_conv2d(cost.permute(0, 2, 3, 1), head.conv1))
     logits = th.normalized_conv2d(x, head.conv2)[..., 0]
@@ -331,10 +337,10 @@ def assert_close_to(got, ref64, mags, what):
 def test_kernels_match_reference(cuda, shape):
     x, gy = dyadic_inputs(shape, 5, device=cuda)
     ws = dyadic_weights(6, device=cuda)
-    before = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    before = launches()
     got = kernel_grads(x, gy, ws)
     torch.cuda.synchronize()
-    assert (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches) == \
+    assert launches() == \
         (before[0] + 1, before[1] + 1)
     ref64 = reference_grads(x.double(), gy.double(), [w.double() for w in ws])
     mags = magnitudes(x, gy, ws)
@@ -346,13 +352,13 @@ def test_kernels_match_reference(cuda, shape):
 def test_empty_batch_launches_nothing(cuda):
     ws = head_weights(0, device=cuda)
     x = torch.zeros(0, 67, 121, device=cuda)
-    before = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    before = launches()
     y, gx, gw1, gb1, gw2, gb2 = kernel_grads(x, x.clone(), ws)
     assert y.shape == gx.shape == x.shape
     assert all(torch.count_nonzero(g).item() == 0 for g in (gw1, gb1, gw2, gb2))
     assert (gw1.shape, gb1.shape, gw2.shape, gb2.shape) == (
         hc.W1_SHAPE, hc.B1_SHAPE, hc.W2_SHAPE, hc.B2_SHAPE)
-    assert (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches) == before
+    assert launches() == before
 
 
 @pytest.mark.cuda
@@ -384,11 +390,11 @@ def test_graph_replay_matches_eager_bit_for_bit(cuda):
     with torch.cuda.stream(side):
         kernel_grads(x, gy, ws)
     torch.cuda.current_stream().wait_stream(side)
-    before = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+    before = launches()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = kernel_grads(x, gy, ws)
-    assert (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches) == before
+    assert launches() == before
     replays = []
     for _ in range(2):
         for t in captured:
@@ -420,10 +426,10 @@ def test_tracker_head_on_the_card_launches_k4(cuda):
         if dev == "cuda":
             h.load_state_dict(head.state_dict())
         c = cost.to(dev).detach().clone().requires_grad_(True)
-        before = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+        before = launches()
         pts = h(c, (476, 854))
         pts.square().sum().backward()
-        after = (hc.head_conv_cuda.launches, hc.head_conv_cuda_bwd.launches)
+        after = launches()
         assert after == (before if dev == "cpu" else (before[0] + 1, before[1] + 1))
         outs[dev] = [pts.detach().cpu(), c.grad.cpu(),
                      *[p.grad.cpu() for p in (h.conv1.weight, h.conv1.bias, h.conv2.weight)]]

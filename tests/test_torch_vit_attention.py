@@ -41,6 +41,7 @@ import torch
 
 from dino_tracker_tpu_torch.models import vit as pvit
 from dino_tracker_tpu_torch.models import vit_convert
+from dino_tracker_tpu_torch.ops import _guard
 from dino_tracker_tpu_torch.ops import attention as pattn
 from dino_tracker_tpu_torch.ops import flash_attention as pflash
 from dino_tracker_tpu_torch.preprocessing import fg_mask
@@ -72,6 +73,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (kernel K2 has no CPU mode)")
     return torch.device("cuda")
+
+
+def launches():
+    """K2's launch count."""
+    return _guard.launch_counts()["flash_attention"]
 
 
 def qkv(shape, seed):
@@ -141,9 +147,9 @@ def test_reference_matches_jax_bf16(jax_ref):
 
 def test_dispatch_takes_plain_version_on_cpu():
     q, k, v = map(torch.from_numpy, qkv((1, 2, 30, 8), 1))
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     out = pattn.multi_head_attention(q, k, v, 0.3)
-    assert pflash.flash_attention_cuda.launches == before
+    assert launches() == before
     torch.testing.assert_close(out, pattn.attention_reference(q, k, v, 0.3),
                                rtol=0, atol=0)
 
@@ -152,10 +158,10 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     """No fallback: the kernel's wrapper refuses a CPU tensor and does not
     count the refused call."""
     q = torch.zeros(1, 2, 8, 64)
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
         pflash.flash_attention_cuda(q, q, q, 0.125)
-    assert pflash.flash_attention_cuda.launches == before
+    assert launches() == before
 
 
 def qkv_views(b, s, h, dtype=torch.float32, device="cpu", seed=0):
@@ -226,10 +232,10 @@ def test_kernel_matches_reference(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     scale = 1.0 / math.sqrt(shape[-1])
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     out = pattn.multi_head_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    assert pflash.flash_attention_cuda.launches == before + 1
+    assert launches() == before + 1
     assert out.dtype == dtype and out.shape == shape
     ref = pattn.attention_reference(q, k, v, scale)
     bound = (2e-5 if dtype == torch.float32
@@ -261,10 +267,10 @@ def test_kernel_on_qkv_views(cuda, b, s, h):
     them: within 2^-6·max|out| of the plain version, nothing copied, the
     output a [B, H, S, 64] view of a [B, S, H, 64] buffer."""
     _, (q, k, v) = qkv_views(b, s, h, torch.bfloat16, cuda, seed=s)
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     out = pattn.multi_head_attention(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert pflash.flash_attention_cuda.launches == before + 1
+    assert launches() == before + 1
     assert out.shape == (b, h, s, 64) and out.dtype == torch.bfloat16
     assert out.stride() == (s * h * 64, 64, h * 64, 1)
     assert out.transpose(1, 2).reshape(b, s, h * 64).data_ptr() == out.data_ptr()
@@ -280,13 +286,13 @@ def test_kernel_rejects_unaligned_bf16_views(cuda):
     unaligned = buf[1:1 + 2 * 16 * 64 * 64].view(2, 16, 64, 64)
     odd_rows = buf[:2 * 16 * 65 * 64].view(2, 16, 64, 65)[..., :64]
     ok = torch.zeros(2, 16, 64, 64, dtype=torch.bfloat16, device=cuda)
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     for bad, match in ((unaligned, "aligned"), (odd_rows, "multiple of 16")):
         with pytest.raises(ValueError, match=match):
             pattn.multi_head_attention(bad, ok, ok, 0.125)
         with pytest.raises(ValueError, match=match):
             pattn.multi_head_attention(ok, ok, bad, 0.125)
-    assert pflash.flash_attention_cuda.launches == before
+    assert launches() == before
 
 
 @pytest.mark.cuda
@@ -300,13 +306,13 @@ def test_feature_stage_on_card_matches_cpu(cuda):
     video = torch.from_numpy(np.random.default_rng(14).random((3, 3, 70, 98),
                                                               dtype=np.float32))
     out = {}
-    before = pflash.flash_attention_cuda.launches
+    before = launches()
     for dev in (torch.device("cpu"), cuda):
         model = vit_convert.build_vit(state, cfg, dev)
         f = pvit.extract_feature_video(model, video.to(dev), layer=[1, 2])
         out[dev.type] = [x.cpu() for x in f] + [
             fg_mask.compute_fg_masks(f[1], (70, 98)).cpu()]
-    assert pflash.flash_attention_cuda.launches == before + 3  # blocks 0..2
+    assert launches() == before + 3  # blocks 0..2
     for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=0)
